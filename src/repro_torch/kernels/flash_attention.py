@@ -1,0 +1,80 @@
+"""Wrapper around the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+
+Replaces ``repro/kernels/flash_attention.py::flash_attention``. q/k/v are read
+in place through their strides, so no pad, fold or transpose happens on the
+host. CUDA tensors only: :func:`repro_torch.kernels.ops.attention` sends CPU
+tensors to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_fn = None
+
+
+def _entry():
+    global _fn
+    if _fn is None:
+        lib = _build.library("flash_attention")
+        fn = lib.flash_attention_fwd
+        fn.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _fn = (fn, lib.flash_attention_error_string)
+    return _fn
+
+
+def shared_memory_bytes(hd: int) -> int:
+    """Dynamic shared memory of one block of the kernel at head_dim ``hd``."""
+    fn = _build.library("flash_attention").flash_attention_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(hd)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None) -> torch.Tensor:
+    """q (B,T,H,hd), k/v (B,S,K,hd) on one CUDA device, fp32 or bf16 →
+    (B,T,H,hd) in q's dtype, with ``sm_scale = 1/sqrt(hd)``."""
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_attention takes CUDA tensors on one device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention takes fp32 or bf16 q/k/v of one dtype, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    B, T, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or K == 0 or H % K:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)} do not form GQA")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("flash_attention needs a unit stride along head_dim")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    fn, err = _entry()
+    o = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        B, T, S, H, K, hd,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        int(causal), window or 0, _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: {err(rc).decode()}")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

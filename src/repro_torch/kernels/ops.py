@@ -1,0 +1,23 @@
+"""Public entry points of the attention kernels.
+
+The device decides: a CUDA tensor goes to the hand-written CUDA kernel, a
+CPU tensor to its plain PyTorch version in :mod:`.ref`. There is no flag and
+no fallback: a CUDA launch that fails raises.
+"""
+from __future__ import annotations
+
+from . import ref
+from .decode_attention import paged_decode_attention
+from .flash_attention import flash_attention
+
+
+def attention(q, k, v, *, causal=True, window=None):
+    if q.is_cuda:
+        return flash_attention(q, k, v, causal=causal, window=window)
+    return ref.mha_reference(q, k, v, causal=causal, window=window)
+
+
+def paged_decode(q, pages_k, pages_v, page_table, lengths):
+    if q.is_cuda:
+        return paged_decode_attention(q, pages_k, pages_v, page_table, lengths)
+    return ref.paged_decode_reference(q, pages_k, pages_v, page_table, lengths)

@@ -1,0 +1,87 @@
+"""Where the serving time goes on the card: ``torch.profiler`` over a window
+of the serving path, after a warm-up request.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch qwen3-4b \
+        --requests 4 --prompt-len 128 --max-new 16 --max-batch 4
+
+Prints the window's wall time (timed once without the profiler, then run
+again under it), the device's busy time (the sum of its kernel and copy
+times: one stream, so they do not overlap), the busy share, and the
+device time by kernel group and of the top kernels. The last line is the
+same as one JSON object. Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
+from repro_torch.launch import serve
+
+GROUPS = [  # (group, substrings of the kernel name), first match wins
+    ("flash_attention kernel", ("flash_fwd_kernel",)),
+    ("paged_decode kernel", ("paged_decode_kernel",)),
+    ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "splitk", "cublas", "nvjet")),
+    ("copy/fill", ("memcpy", "memset", "copy", "fill")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized")),
+]
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def main(argv: list[str] | None = None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=128)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-batch", type=int, default=4)
+    args = ap.parse_args(argv)
+
+    model = serve.build(get_config(args.arch), resolve_device("cuda"))
+    window = dict(requests=args.requests, prompt_len=args.prompt_len, max_new=args.max_new,
+                  max_batch=args.max_batch)
+    serve.run(model, **{**window, "requests": 1})  # warm-up: kernel builds, cuBLAS, allocator
+    _, plain = serve.run(model, **window)  # the window without the profiler
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, m = serve.run(model, **window)
+
+    by_group: dict[str, float] = defaultdict(float)
+    by_kernel: dict[str, float] = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            by_group[group_of(e.name)] += us
+            by_kernel[e.name] += us
+    busy = sum(by_group.values()) / 1e6
+    wall = plain["wall_s"]
+    out = {
+        "device": torch.cuda.get_device_name(0), "arch": model.cfg.name, "layers": model.cfg.n_layers,
+        **{k: m[k] for k in ("requests", "tokens", "prefill_calls", "decode_calls")},
+        "wall_s": wall, "wall_profiled_s": m["wall_s"], "device_busy_s": busy, "busy_share": busy / wall,
+        "groups_ms": {g: v / 1e3 for g, v in sorted(by_group.items(), key=lambda kv: -kv[1])},
+        "top_kernels_ms": {k[:90]: v / 1e3 for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]},
+    }
+    print(f"window: {wall:.3f} s wall ({m['wall_s']:.3f} s profiled), device busy {busy:.3f} s "
+          f"({100 * busy / wall:.1f}%), {m['prefill_calls']} prefills, {m['decode_calls']} decode calls")
+    for g, v in out["groups_ms"].items():
+        print(f"  {g:24s} {v:10.3f} ms")
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

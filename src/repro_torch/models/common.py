@@ -1,0 +1,96 @@
+"""Shared model components: norms, RoPE, activations, embeddings, logits.
+
+Plain functions on tensors, with the reference's numerics: norms scale by
+``1 + scale`` and compute in fp32; RoPE is split-half and computed in fp32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def init_truncated_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:
+    """``std · truncated_normal(-2, 2)`` in place. Drawn in fp32 one leading
+    slice at a time, so a low-precision parameter never needs a full fp32 copy."""
+    for sl in (t if t.ndim >= 3 else [t]):
+        tmp = torch.empty(sl.shape, dtype=torch.float32, device=t.device)
+        torch.nn.init.trunc_normal_(tmp, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+        sl.copy_(tmp)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dt)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(dt)
+
+
+def norm(x: torch.Tensor, scale: torch.Tensor, eps: float, kind: str) -> torch.Tensor:
+    return rmsnorm(x, scale, eps) if kind == "rmsnorm" else layernorm(x, scale, eps)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions: (...,) int — returns (sin, cos) of shape (..., head_dim//2)."""
+    half = head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), exps)
+    angles = positions.float()[..., None] * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """x: (..., T, H, D); sin/cos: (..., T, D//2) broadcast over heads."""
+    dt = x.dtype
+    x = x.float()
+    x1, x2 = x.chunk(2, dim=-1)
+    s = sin[..., None, :]
+    c = cos[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+
+def glu_activation(gate: torch.Tensor, up: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "swiglu":
+        return F.silu(gate) * up
+    if kind == "geglu":
+        return F.gelu(gate, approximate="tanh") * up
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# embeddings + logits
+# ---------------------------------------------------------------------------
+
+def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return emb[tokens].to(dtype)
+
+
+def logits_from_hidden(x: torch.Tensor, out_emb: torch.Tensor, vocab: int) -> torch.Tensor:
+    """x: (B, T, d), out_emb: (V, d) → fp32 logits with the padded vocab masked."""
+    logits = torch.matmul(x, out_emb.to(x.dtype).t()).float()
+    V = out_emb.shape[0]
+    if V != vocab:
+        logits[..., vocab:] = -1e30
+    return logits

@@ -1,0 +1,240 @@
+"""Decoder-only transformer LM, dense family.
+
+GQA attention (+qk-norm for qwen3, +bias for qwen2-style configs, +parallel
+attention/FFN residual block for command-r), GLU or GELU FFN, optional
+vision-embedding merge, rotary or learned positions. The MoE FFN arrives with
+the MoE family.
+
+Parameters keep the reference's layout: a leading ``L`` axis on every
+per-layer tensor and the same key paths (``state_dict`` key ``attn.wq`` is
+the reference's ``['attn']['wq']``), so :mod:`repro_torch.convert` moves
+parameter trees between the packages. The layers run in a Python loop over
+slices of the stacked tensors.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from . import attention as attn_lib
+from .common import (
+    apply_rope,
+    embed_tokens,
+    glu_activation,
+    init_truncated_normal_,
+    logits_from_hidden,
+    norm,
+    rmsnorm,
+    rope_tables,
+)
+
+CACHE_DTYPE = torch.bfloat16  # the KV cache is bf16 whatever the compute dtype, as in the reference
+
+
+def apply_mlp(lp: dict, h: torch.Tensor, cfg) -> torch.Tensor:
+    if cfg.activation == "gelu":
+        u = torch.nn.functional.gelu(h @ lp["w_up"].to(h.dtype), approximate="tanh")
+        return u @ lp["w_down"].to(h.dtype)
+    g = h @ lp["w_gate"].to(h.dtype)
+    u = h @ lp["w_up"].to(h.dtype)
+    return glu_activation(g, u, cfg.activation) @ lp["w_down"].to(h.dtype)
+
+
+def qkv(lp: dict, h: torch.Tensor, cfg, sin, cos):
+    """h (B,T,d) → q (B,T,H,hd), k/v (B,T,K,hd) with rope applied."""
+    B, T, _ = h.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = h @ lp["wq"].to(h.dtype)
+    k = h @ lp["wk"].to(h.dtype)
+    v = h @ lp["wv"].to(h.dtype)
+    if cfg.attention_bias:
+        q = q + lp["bq"].to(h.dtype)
+        k = k + lp["bk"].to(h.dtype)
+        v = v + lp["bv"].to(h.dtype)
+    q = q.reshape(B, T, H, hd)
+    k = k.reshape(B, T, K, hd)
+    v = v.reshape(B, T, K, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, lp["q_norm"], cfg.rms_eps)
+        k = rmsnorm(k, lp["k_norm"], cfg.rms_eps)
+    if cfg.use_rope:
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+    return q, k, v
+
+
+class TransformerLM(nn.Module):
+    """Parameters are created zero-filled on ``device`` in ``param_dtype``;
+    :meth:`init` draws them, or ``load_state_dict`` loads a converted tree.
+    Computation runs in ``cfg.dtype``. Parameters do not require grad: this
+    module serves."""
+
+    def __init__(self, cfg, device=None, param_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if cfg.family not in ("dense", "vlm"):
+            raise NotImplementedError(
+                f"family {cfg.family!r}: TransformerLM ports the dense family; the MoE FFN is "
+                "ROADMAP Queue A item 13"
+            )
+        self.cfg = cfg
+        dev = resolve_device(device)
+        d, H, K, hd, L = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
+        V, ff = cfg.padded_vocab, cfg.d_ff
+
+        def p(*shape):
+            return nn.Parameter(torch.zeros(shape, dtype=param_dtype, device=dev), requires_grad=False)
+
+        self.embed = p(V, d)
+        self.ln1 = p(L, d)
+        self.ln_f = p(d)
+        attn = {"wq": p(L, d, H * hd), "wk": p(L, d, K * hd), "wv": p(L, d, K * hd), "wo": p(L, H * hd, d)}
+        if cfg.attention_bias:
+            attn.update(bq=p(L, H * hd), bk=p(L, K * hd), bv=p(L, K * hd))
+        if cfg.qk_norm:
+            attn.update(q_norm=p(L, hd), k_norm=p(L, hd))
+        self.attn = nn.ParameterDict(attn)
+        if not cfg.parallel_block:
+            self.ln2 = p(L, d)
+        if cfg.activation == "gelu":
+            self.mlp = nn.ParameterDict({"w_up": p(L, d, ff), "w_down": p(L, ff, d)})
+        else:
+            self.mlp = nn.ParameterDict({"w_gate": p(L, d, ff), "w_up": p(L, d, ff), "w_down": p(L, ff, d)})
+        if not cfg.tie_embeddings:
+            self.out_embed = p(V, d)
+        if cfg.pos_emb == "learned":
+            self.pos_embed = p(8192, d)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.cfg.dtype)
+
+    # -- init ----------------------------------------------------------------
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "TransformerLM":
+        """Draw the parameters with the reference's shapes and stds:
+        ``std · truncated_normal(-2, 2)``, norms and biases zero, vocab
+        padding rows zero. ``generator`` lives on the parameters' device."""
+        cfg = self.cfg
+        d, ff, Hhd = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.resolved_head_dim
+        init_truncated_normal_(self.embed, d**-0.5, generator)
+        self.embed[cfg.vocab:] = 0
+        for name in ("wq", "wk", "wv"):
+            init_truncated_normal_(self.attn[name], d**-0.5, generator)
+        init_truncated_normal_(self.attn["wo"], Hhd**-0.5, generator)
+        for name in ("w_gate", "w_up"):
+            if name in self.mlp:
+                init_truncated_normal_(self.mlp[name], d**-0.5, generator)
+        init_truncated_normal_(self.mlp["w_down"], ff**-0.5, generator)
+        if not cfg.tie_embeddings:
+            init_truncated_normal_(self.out_embed, d**-0.5, generator)
+            self.out_embed[cfg.vocab:] = 0
+        if cfg.pos_emb == "learned":
+            init_truncated_normal_(self.pos_embed, 0.02, generator)
+        return self
+
+    def _layer(self, l: int) -> dict:
+        lp = {"ln1": self.ln1[l], "attn": {k: v[l] for k, v in self.attn.items()},
+              "mlp": {k: v[l] for k, v in self.mlp.items()}}
+        if not self.cfg.parallel_block:
+            lp["ln2"] = self.ln2[l]
+        return lp
+
+    def _out_embed(self) -> torch.Tensor:
+        return self.embed if self.cfg.tie_embeddings else self.out_embed
+
+    def _block_tail(self, lp, x, h, ao):
+        """Residual adds and the FFN, after attention's output projection."""
+        cfg = self.cfg
+        if cfg.parallel_block:
+            return x + ao + apply_mlp(lp["mlp"], h, cfg)
+        x = x + ao
+        h2 = norm(x, lp["ln2"], cfg.rms_eps, cfg.norm_type)
+        return x + apply_mlp(lp["mlp"], h2, cfg)
+
+    # -- forward (prefill) -----------------------------------------------------
+    def _trunk(self, tokens, vision_embeds, q_chunk, kv_sink=None):
+        cfg = self.cfg
+        dtype = self.compute_dtype
+        B, T = tokens.shape
+        x = embed_tokens(self.embed, tokens, dtype)
+        if vision_embeds is not None:
+            x[:, : vision_embeds.shape[1]] = vision_embeds.to(dtype)
+        if cfg.pos_emb == "learned":
+            x = x + self.pos_embed[:T].to(dtype)
+        sin, cos = rope_tables(torch.arange(T, device=tokens.device), cfg.resolved_head_dim, cfg.rope_theta)
+        for l in range(cfg.n_layers):
+            lp = self._layer(l)
+            h = norm(x, lp["ln1"], cfg.rms_eps, cfg.norm_type)
+            q, k, v = qkv(lp["attn"], h, cfg, sin, cos)
+            ao = attn_lib.full_attention(q, k, v, causal=True, q_chunk=q_chunk)
+            ao = ao.reshape(B, T, -1) @ lp["attn"]["wo"].to(x.dtype)
+            x = self._block_tail(lp, x, h, ao)
+            if kv_sink is not None:
+                kv_sink(l, k, v)
+        return norm(x, self.ln_f, cfg.rms_eps, cfg.norm_type)
+
+    def hidden_states(self, tokens, vision_embeds=None, *, collect_kv: bool = False, q_chunk: int = 2048):
+        """Returns (hidden (B,T,d), aux_loss, stacked (k, v) (L,B,T,K,hd) or None)."""
+        kvs = []
+        x = self._trunk(tokens, vision_embeds, q_chunk,
+                        (lambda l, k, v: kvs.append((k, v))) if collect_kv else None)
+        stacked = (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])) if collect_kv else None
+        return x, torch.zeros((), dtype=torch.float32, device=x.device), stacked
+
+    def forward(self, tokens, vision_embeds=None, *, q_chunk: int = 2048):
+        x, aux, _ = self.hidden_states(tokens, vision_embeds, q_chunk=q_chunk)
+        return logits_from_hidden(x, self._out_embed(), self.cfg.vocab), aux
+
+    # -- serving ------------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {
+            "k": torch.zeros(shape, dtype=CACHE_DTYPE, device=self.device),
+            "v": torch.zeros(shape, dtype=CACHE_DTYPE, device=self.device),
+            "length": 0,
+        }
+
+    def prefill(self, tokens, vision_embeds=None, *, q_chunk: int = 2048, pad_to: int | None = None):
+        """Run the full prompt, build the KV cache (padded to ``pad_to`` slots
+        for later decode steps), return last-token logits."""
+        B, T = tokens.shape
+        cache = self.init_cache(B, max(T, pad_to or T))
+        cache["length"] = T
+
+        def sink(l, k, v):
+            cache["k"][l, :, :T] = k
+            cache["v"][l, :, :T] = v
+
+        x = self._trunk(tokens, vision_embeds, q_chunk, sink)
+        logits = logits_from_hidden(x[:, -1:, :], self._out_embed(), self.cfg.vocab)[:, 0]
+        return logits, cache
+
+    def decode_step(self, cache: dict, tokens: torch.Tensor):
+        """tokens (B,1) — appends one position at cache['length']. The cache
+        tensors are updated in place (the reference returns new arrays); the
+        returned dict holds the same tensors and the new length."""
+        cfg = self.cfg
+        B = tokens.shape[0]
+        pos = int(cache["length"])
+        x = embed_tokens(self.embed, tokens, self.compute_dtype)
+        if cfg.pos_emb == "learned":
+            x = x + self.pos_embed[pos:pos + 1].to(x.dtype)
+        sin, cos = rope_tables(torch.tensor([pos], device=tokens.device), cfg.resolved_head_dim, cfg.rope_theta)
+        for l in range(cfg.n_layers):
+            lp = self._layer(l)
+            h = norm(x, lp["ln1"], cfg.rms_eps, cfg.norm_type)
+            q, k, v = qkv(lp["attn"], h, cfg, sin, cos)
+            kc = attn_lib.update_cache(cache["k"][l], k, pos)
+            vc = attn_lib.update_cache(cache["v"][l], v, pos)
+            ao = attn_lib.decode_attention(q, kc, vc, pos + 1)
+            ao = ao.reshape(B, 1, -1) @ lp["attn"]["wo"].to(x.dtype)
+            x = self._block_tail(lp, x, h, ao)
+        x = norm(x, self.ln_f, cfg.rms_eps, cfg.norm_type)
+        logits = logits_from_hidden(x, self._out_embed(), cfg.vocab)[:, 0]
+        return logits, {"k": cache["k"], "v": cache["v"], "length": pos + 1}

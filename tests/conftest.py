@@ -27,6 +27,10 @@ for _mod, _files in _GATED.items():
         warnings.warn(f"skipping {_files}: module {_mod!r} unavailable")
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "gpu: needs a CUDA card (skips without one); run with -m gpu")
+
+
 @pytest.fixture()
 def tmp_db_dir(tmp_path):
     return str(tmp_path / "db")

@@ -1,0 +1,153 @@
+"""The port's paged KV allocator (invariants under hypothesis) and serving
+engine, end to end and token for token against the reference engine."""
+import jax
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from repro.configs import get_config as ref_get_config
+from repro.models import build_model as ref_build_model
+from repro.serving.engine import Request as RefRequest
+from repro.serving.engine import ServingEngine as RefServingEngine
+from repro_torch.configs import get_config
+from repro_torch.convert import flatten, params_from_jax
+from repro_torch.models import build_model
+from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.serving.kv_cache import OutOfPages, PagedKVCache
+
+torch.set_num_threads(1)
+
+
+def _kv(num_pages=16, page=8, maxp=4):
+    return PagedKVCache(num_pages, page, n_layers=2, n_kv_heads=2, head_dim=8,
+                        max_pages_per_seq=maxp, device="cpu")
+
+
+def test_alloc_free_roundtrip():
+    kv = _kv()
+    kv.admit(1, prompt_len=20)  # 3 pages at page=8
+    assert len(kv.seqs[1].pages) == 3
+    assert kv.utilization() == 3 / 16
+    kv.release(1)
+    assert kv.utilization() == 0.0
+
+
+def test_out_of_pages():
+    kv = _kv(num_pages=4, maxp=8)
+    kv.admit(1, prompt_len=30)  # needs 4 pages
+    kv.admit(2)
+    with pytest.raises(OutOfPages):
+        kv.reserve(2, 10)
+
+
+def test_page_table_overflow():
+    kv = _kv(num_pages=16, maxp=2)
+    kv.admit(1, prompt_len=16)
+    with pytest.raises(OutOfPages, match="page-table"):
+        kv.reserve(1, 1)
+
+
+def test_page_table_and_lengths():
+    kv = _kv()
+    kv.admit(7, prompt_len=10)
+    kv.admit(9, prompt_len=3)
+    pt = kv.page_table([7, 9])
+    assert pt.shape == (2, 4) and pt.dtype == np.int32
+    assert (kv.lengths([7, 9]) == np.array([10, 3])).all()
+    assert set(kv.seqs[7].pages).isdisjoint(kv.seqs[9].pages)
+    assert list(pt[0, :2]) == kv.seqs[7].pages and list(pt[1, :1]) == kv.seqs[9].pages
+
+
+def test_write_token_lands_in_its_page():
+    kv = _kv()
+    kv.admit(3, prompt_len=9)  # position 8 = page 1, offset 0
+    k = torch.arange(16, dtype=torch.float32).view(1, 2, 8)
+    kv.write_token(1, [3], k, -k)
+    pid = kv.seqs[3].pages[1]
+    assert kv.pages_k[1].dtype == torch.bfloat16
+    assert torch.equal(kv.pages_k[1][pid, 0], k[0].bfloat16())
+    assert torch.equal(kv.pages_v[1][pid, 0], -k[0].bfloat16())
+    assert kv.pages_k[0].abs().sum() == 0  # other layers untouched
+
+
+@settings(max_examples=30, deadline=None)
+@given(
+    ops=st.lists(
+        st.tuples(st.sampled_from(["admit", "reserve", "release"]), st.integers(0, 5), st.integers(1, 12)),
+        max_size=60,
+    )
+)
+def test_allocator_invariants(ops):
+    """No page is ever owned by two sequences; free+owned == total."""
+    kv = _kv(num_pages=12, page=4, maxp=6)
+    for op, sid, n in ops:
+        try:
+            if op == "admit" and sid not in kv.seqs:
+                kv.admit(sid)
+            elif op == "reserve" and sid in kv.seqs:
+                kv.reserve(sid, n)
+            elif op == "release" and sid in kv.seqs:
+                kv.release(sid)
+        except OutOfPages:
+            pass
+        owned = [p for s in kv.seqs.values() for p in s.pages]
+        assert len(owned) == len(set(owned))
+        assert sorted(owned + kv.free) == list(range(12))
+
+
+def _cfg(dtype="bfloat16"):
+    kw = dict(d_model=64, n_layers=2, vocab=256, vocab_pad_multiple=64, dtype=dtype)
+    return ref_get_config("llama3-8b").reduced(**kw), get_config("llama3-8b").reduced(**kw)
+
+
+def test_engine_end_to_end():
+    _, cfg = _cfg()
+    model = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    engine = ServingEngine(model, max_batch=2, max_len=64, page_size=16)
+    rng = np.random.default_rng(0)
+    for rid in range(5):
+        engine.submit(Request(rid, rng.integers(1, cfg.vocab, 8).astype(np.int32), max_new_tokens=6))
+    done = engine.run_until_drained()
+    assert len(done) == 5
+    assert all(len(r.tokens) == 6 for r in done)
+    m = engine.metrics()
+    assert m["tokens"] == 30
+    assert (engine.prefill_calls, engine.decode_calls) == (5, 25)
+    assert engine.kv.utilization() == 0.0
+
+
+def test_engine_greedy_matches_manual_decode():
+    _, cfg = _cfg()
+    model = build_model(cfg, "cpu").init(torch.Generator().manual_seed(1))
+    prompt = np.arange(1, 9, dtype=np.int32)
+    engine = ServingEngine(model, max_batch=1, max_len=64, page_size=16)
+    engine.submit(Request(0, prompt, max_new_tokens=5))
+    (req,) = engine.run_until_drained()
+    with torch.no_grad():
+        logits, cache = model.prefill(torch.from_numpy(prompt).long()[None], pad_to=64)
+        toks = [int(torch.argmax(logits[0]))]
+        for _ in range(4):
+            logits, cache = model.decode_step(cache, torch.tensor([[toks[-1]]]))
+            toks.append(int(torch.argmax(logits[0])))
+    assert req.tokens == toks
+
+
+def test_engine_tokens_equal_reference_engine():
+    """Same weights, same prompts, fp32: the greedy tokens are identical."""
+    rcfg, cfg = _cfg("float32")
+    ref_model = ref_build_model(rcfg)
+    params = ref_model.init(jax.random.key(1))
+    model = build_model(cfg, "cpu")
+    model.load_state_dict(flatten(params_from_jax(jax.tree.map(np.asarray, params))))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in (8, 5, 12)]
+    ref_engine = RefServingEngine(rcfg, params, max_batch=2, max_len=64, page_size=16)
+    engine = ServingEngine(model, max_batch=2, max_len=64, page_size=16)
+    for rid, p in enumerate(prompts):
+        ref_engine.submit(RefRequest(rid, p, max_new_tokens=6))
+        engine.submit(Request(rid, p, max_new_tokens=6))
+    ref_done = {r.req_id: r.tokens for r in ref_engine.run_until_drained()}
+    done = {r.req_id: r.tokens for r in engine.run_until_drained()}
+    assert done == ref_done
