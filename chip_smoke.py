@@ -6,17 +6,23 @@
 Run from the root of a checkout. Phases, in order; any failure exits non-zero:
 
 1. device: the card's name, count, and power limit;
-2. build: both CUDA kernels from src/repro_torch/csrc with nvcc for sm_90a;
+2. build: every CUDA kernel from src/repro_torch/csrc with nvcc for sm_90a
+   (one nvcc per source, all started together);
 3. each kernel against its plain PyTorch version on the card, over the
    tests/test_kernels.py grids in fp32 and bf16 and at the serving shapes of
-   qwen3-4b, with times of kernel, plain version and the PyTorch library call
-   (a yardstick only: the port never calls it) beside the bound;
-4. model parity: qwen3-4b at full width, cut to 2 layers, fp32; one set of
-   seeded weights; a teacher-forced 64-token prefill and 4 decode steps on the
-   card (kernels) and on the CPU (plain path), logits compared;
-5. serving: ``repro_torch.launch.serve`` with qwen3-4b at full width and
-   depth, bf16, 8 requests, prompt 128, 32 new tokens, max batch 4; kernel
-   launch counts checked against the number of prefill and decode calls;
+   qwen3-4b (attention) and mamba2-1.3b (SSD), with times of kernel, plain
+   version and the PyTorch library call where one exists (a yardstick only:
+   the port never calls it) beside the bound;
+4. model parity, card (kernels) against CPU (plain path), fp32, one set of
+   seeded weights, full width cut to 2 layers: qwen3-4b with a 64-token
+   prefill and mamba2-1.3b with a 512-token prefill (2 chunks of 256), each
+   followed by 4 teacher-forced decode steps, logits compared;
+5. serving: ``repro_torch.launch.serve`` at full width and depth in bf16:
+   qwen3-4b (8 requests, prompt 128, 32 new tokens, max batch 4), then
+   mamba2-1.3b (8 requests, prompt 1024, 32 new tokens, max batch 4, max_len
+   1280); before each run every launch count is set to 0, and after it the
+   counts of that path's kernels are checked against its prefill and decode
+   calls;
 6. a ``kernels:`` summary line (launches and max|Δ| per kernel), the JSON
    line ``{"kernels": [...]}`` with every measured number, then the result
    line.
@@ -39,8 +45,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, decode_attention, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_module  # noqa: E402
+from repro_torch.kernels import ssd_scan  # noqa: E402
 from repro_torch.kernels.decode_attention import paged_decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.ssd_scan import inter_chunk_scan, ssd_chunked_cuda, ssd_output, ssd_states  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
@@ -58,27 +66,43 @@ FLASH_GRID = [  # tests/test_kernels.py
     (1, 256, 2, 2, 32, True, None),
 ]
 PAGED_GRID = [(2, 8, 4, 64, 16, 128, 4), (4, 4, 1, 128, 32, 128, 6), (2, 16, 8, 64, 16, 256, 3)]
-TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py::_tol, rtol 1e-2
+# (b, t, h, p, n, chunk): tests/test_kernels.py::test_ssd_chunk_sweep, a
+# ragged t at chunk 100, and the serving shape of mamba2-1.3b (prompt 1024)
+SSD_GRID = [(1, 128, 4, 32, 64, 32), (2, 256, 2, 64, 128, 64), (1, 64, 8, 16, 32, 64),
+            (1, 300, 2, 64, 128, 100)]
+SSD_SERVING = (1, 1024, 64, 64, 128, 256)
+TOL = {torch.float32: (2e-5, 1e-2), torch.bfloat16: (2e-2, 1e-2)}  # tests/test_kernels.py::_tol
+SSD_TOL = {torch.float32: (5e-4, 1e-3), torch.bfloat16: (2e-2, 1e-2)}  # test_ssd_chunk_sweep's; bf16 y
 PARITY_ATOL = 5e-3  # phase 4, see there
 KERNELS = {
     "flash_attention": dict(route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
                             replaces="src/repro/kernels/flash_attention.py:152"),
     "paged_decode": dict(route="cuda", source="src/repro_torch/csrc/paged_decode.cu",
                          replaces="src/repro/kernels/decode_attention.py:111"),
+    "ssd_states": dict(route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+                       replaces="src/repro/kernels/ssd_scan.py:85"),
+    "ssd_output": dict(route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+                       replaces="src/repro/kernels/ssd_scan.py:117"),
 }
+WRAPPERS = {"flash_attention": flash_attention, "paged_decode": paged_decode_attention,
+            "ssd_states": ssd_states, "ssd_output": ssd_output}
 
 
 def randn(rng, shape, dtype):
     return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to("cuda", dtype)
 
 
-def check(name, out, expect, dtype) -> float:
-    """max|Δ| of kernel output against its plain version; raises past tolerance."""
+def check(name, out, expect, tol) -> float:
+    """max|Δ| of kernel output against its plain version; raises past
+    ``tol = (atol, rtol)``."""
     torch.cuda.synchronize()
+    atol, rtol = tol
+    if out.shape != expect.shape or out.dtype != expect.dtype:
+        raise AssertionError(f"{name}: {tuple(out.shape)} {out.dtype} vs plain {tuple(expect.shape)} {expect.dtype}")
     diff = (out.float() - expect.float()).abs()
     err = diff.max().item() if diff.numel() else 0.0
-    ok = bool((diff <= TOL[dtype] + 1e-2 * expect.float().abs()).all())
-    print(f"  {name}: max|d|={err:.3e} tol={TOL[dtype]:.0e} {'ok' if ok else 'FAIL'}")
+    ok = bool((diff <= atol + rtol * expect.float().abs()).all())
+    print(f"  {name}: max|d|={err:.3e} atol={atol:.0e} rtol={rtol:.0e} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version (max|d|={err})")
     return err
@@ -120,10 +144,13 @@ def device_ms(fn, iters=100, reps=5) -> float:
     return _events_ms(lambda: [graph.replay() for _ in range(reps)], iters * reps)
 
 
-def timings(kernel, plain, library) -> dict:
-    t = dict(ms=device_ms(kernel), plain_ms=device_ms(plain), library_ms=device_ms(library),
-             eager_ms=eager_ms(kernel), plain_eager_ms=eager_ms(plain, 50), library_eager_ms=eager_ms(library))
-    print("  " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+def timings(kernel, plain, library=None) -> dict:
+    """``library`` None: no single PyTorch call computes the function."""
+    t = dict(ms=device_ms(kernel), plain_ms=device_ms(plain),
+             library_ms=device_ms(library) if library else None,
+             eager_ms=eager_ms(kernel), plain_eager_ms=eager_ms(plain, 50),
+             library_eager_ms=eager_ms(library) if library else None)
+    print("  " + ", ".join(f"{k} {v:.4f}" if v is not None else f"{k} none" for k, v in t.items()))
     return t
 
 
@@ -155,6 +182,8 @@ def phase_build() -> None:
           + ", ".join(f"hd {hd}: {flash_module.shared_memory_bytes(hd)} B" for hd in hds)
           + "; paged_decode at G=4 "
           + ", ".join(f"hd {hd}: {decode_attention.shared_memory_bytes(hd, 4)} B" for hd in hds))
+    print("  ssd_states, ssd_output at p 64, n 128: %s B; at p 128, n 256: %s B"
+          % (ssd_scan.shared_memory_bytes(64, 128), ssd_scan.shared_memory_bytes(128, 256)))
 
 
 def phase_kernels() -> dict:
@@ -166,7 +195,7 @@ def phase_kernels() -> dict:
             k, v = randn(rng, (B, T, K, hd), dtype), randn(rng, (B, T, K, hd), dtype)
             check(f"flash {B},{T},{H},{K},{hd} causal={causal} window={window} {dtype}",
                   flash_attention(q, k, v, causal=causal, window=window),
-                  ref.mha_reference(q, k, v, causal=causal, window=window), dtype)
+                  ref.mha_reference(q, k, v, causal=causal, window=window), TOL[dtype])
         for B, H, K, hd, P, page, maxp in PAGED_GRID:
             q = randn(rng, (B, H, hd), dtype)
             pk, pv = randn(rng, (P, page, K, hd), dtype), randn(rng, (P, page, K, hd), dtype)
@@ -174,7 +203,7 @@ def phase_kernels() -> dict:
             lens = torch.from_numpy(rng.integers(1, maxp * page, size=(B,)).astype(np.int32)).cuda()
             check(f"paged {B},{H},{K},{hd},{P},{page},{maxp} {dtype}",
                   paged_decode_attention(q, pk, pv, pt, lens),
-                  ref.paged_decode_reference(q, pk, pv, pt, lens), dtype)
+                  ref.paged_decode_reference(q, pk, pv, pt, lens), TOL[dtype])
 
     dt, es = torch.bfloat16, 2
     results = {}
@@ -182,7 +211,7 @@ def phase_kernels() -> dict:
     B, T, H, K, hd = 1, 128, 32, 8, 128
     q = randn(rng, (B, T, H, hd), dt)
     k, v = randn(rng, (B, T, K, hd), dt), randn(rng, (B, T, K, hd), dt)
-    err = check("flash serving shape", flash_attention(q, k, v), ref.mha_reference(q, k, v), dt)
+    err = check("flash serving shape", flash_attention(q, k, v), ref.mha_reference(q, k, v), TOL[dt])
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
     flops = 4 * hd * H * B * T * (T + 1) // 2
@@ -205,10 +234,10 @@ def phase_kernels() -> dict:
         out, expect = paged_decode_attention(q, pk, pv, pt, lens), ref.paged_decode_reference(q, pk, pv, pt, lens)
         torch.cuda.synchronize()
         d = (out.float() - expect.float()).abs()
-        if not bool((d <= TOL[dt] + 1e-2 * expect.float().abs()).all()):
+        if not bool((d <= TOL[dt][0] + TOL[dt][1] * expect.float().abs()).all()):
             raise AssertionError(f"paged decode disagrees at length {length}: max|d|={d.max().item()}")
         err = max(err, d.max().item())
-    print(f"  paged serving shape, lengths 0..{S}: max|d|={err:.3e} tol={TOL[dt]:.0e} ok")
+    print(f"  paged serving shape, lengths 0..{S}: max|d|={err:.3e} atol={TOL[dt][0]:.0e} ok")
     L = 160
     lens = torch.tensor([L], dtype=torch.int32, device="cuda")
     qs, ks, vs = q.view(1, H, 1, hd), kc[:, :L].transpose(1, 2), vc[:, :L].transpose(1, 2)
@@ -221,31 +250,92 @@ def phase_kernels() -> dict:
                 lambda: ref.paged_decode_reference(q, pk, pv, pt, lens),
                 lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True))
     results["paged_decode"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)
+    results.update(phase_ssd_kernels(rng))
     return results
 
 
-def phase_parity() -> None:
+def ssd_inputs(rng, b, t, h, p, n, dtype):
+    x = randn(rng, (b, t, h, p), dtype)
+    dA = -randn(rng, (b, t, h), torch.float32).abs() * 0.3
+    return x, dA, randn(rng, (b, t, 1, n), dtype), randn(rng, (b, t, 1, n), dtype)
+
+
+def check_ssd(name, x, dA, B_, C_, chunk) -> tuple[float, float]:
+    """Both SSD kernels against their plain versions (each on the same
+    inputs: ssd_output is fed the plain y_diag and H_in), and the chunked
+    path they make against the sequential oracle. Returns the max|Δ| of
+    (ssd_states, ssd_output)."""
+    f32 = SSD_TOL[torch.float32]
+    y_diag, S = ssd_states(x, dA, B_, C_, chunk)
+    yd_ref, S_ref = ref.ssd_states_reference(x, dA, B_, C_, chunk)
+    e_states = max(check(f"ssd_states y_diag {name}", y_diag, yd_ref, f32),
+                   check(f"ssd_states S {name}", S, S_ref, f32))
+    H_in, _ = inter_chunk_scan(S_ref, dA, chunk)
+    e_output = check(f"ssd_output {name}", ssd_output(yd_ref, dA, C_, H_in, x.dtype),
+                     ref.ssd_output_reference(yd_ref, dA, C_, H_in, x.dtype), SSD_TOL[x.dtype])
+    y, H_last = ssd_chunked_cuda(x, dA, B_, C_, chunk)
+    y_ref, H_ref = ref.ssd_chunk_reference(x, dA, B_, C_)
+    check(f"ssd chunked vs sequential oracle, y {name}", y, y_ref, SSD_TOL[x.dtype])
+    check(f"ssd chunked vs sequential oracle, state {name}", H_last, H_ref, f32)
+    return e_states, e_output
+
+
+def phase_ssd_kernels(rng) -> dict:
+    cases = [(dtype, case) for dtype in (torch.float32, torch.bfloat16) for case in SSD_GRID]
+    for dtype, (b, t, h, p, n, chunk) in cases + [(torch.float32, SSD_SERVING)]:
+        check_ssd(f"{b},{t},{h},{p},{n},{chunk} {dtype}", *ssd_inputs(rng, b, t, h, p, n, dtype), chunk)
+    # the serving shape of mamba2-1.3b in bf16, checked and timed
+    dt, es = torch.bfloat16, 2
+    b, t, h, p, n, cs = SSD_SERVING
+    nc = -(-t // cs)
+    x, dA, B_, C_ = ssd_inputs(rng, b, t, h, p, n, dt)
+    e_states, e_output = check_ssd("serving shape", x, dA, B_, C_, cs)
+    results = {}
+    tri = cs * (cs + 1) // 2  # causal (i, j) pairs of a chunk
+    nbytes = x.numel() * es + dA.numel() * 4 + 2 * B_.numel() * es + 4 * b * nc * h * (cs * p + p * n)
+    # C·Bᵀ once per (batch, chunk): it does not depend on the head when g = 1
+    flops = b * nc * (2 * tri * n + h * (2 * tri * p + 2 * cs * p * n))
+    bound_ms, by = bound(nbytes, flops, dt)
+    print(f"  ssd_states serving shape, ms per call (no library call computes it), "
+          f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
+    t_ = timings(lambda: ssd_states(x, dA, B_, C_, cs), lambda: ref.ssd_states_reference(x, dA, B_, C_, cs))
+    results["ssd_states"] = dict(max_abs_err=e_states, bound_ms=bound_ms, bound_by=by, **t_)
+    y_diag, S = ref.ssd_states_reference(x, dA, B_, C_, cs)
+    H_in, _ = inter_chunk_scan(S, dA, cs)
+    nbytes = 4 * (y_diag.numel() + dA.numel() + H_in.numel()) + C_.numel() * es + x.numel() * es
+    flops = 2 * b * nc * h * cs * p * n
+    bound_ms, by = bound(nbytes, flops, torch.float32)  # H_in is an fp32 operand
+    print(f"  ssd_output serving shape, ms per call (no library call computes it), "
+          f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
+    t_ = timings(lambda: ssd_output(y_diag, dA, C_, H_in, dt), lambda: ref.ssd_output_reference(y_diag, dA, C_, H_in, dt))
+    results["ssd_output"] = dict(max_abs_err=e_output, bound_ms=bound_ms, bound_by=by, **t_)
+    return results
+
+
+def phase_parity(arch: str, prompt_len: int) -> None:
     """Teacher-forced logits, card (kernels) against CPU (plain path), fp32.
 
     Tolerance PARITY_ATOL on logits of magnitude ~4: both sides compute in
     fp32 (TF32 off) and differ only in summation order (~1e-5), except that
-    the KV cache is bf16 on both; a last-ulp fp32 difference can round a
-    cached element to the neighbouring bf16 value (2^-8 relative), which moves
-    a score, and so a logit, by far less than 1e-3."""
+    a cache is bf16 on both (qwen3's KV cache, mamba2's conv tails); a
+    last-ulp fp32 difference can round a cached element to the neighbouring
+    bf16 value (2^-8 relative), which moves a logit by far less than 1e-3.
+    mamba2's SSD runs in fp32 throughout on the card and, in an fp32 model,
+    on the CPU too."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("qwen3-4b"), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
     t0 = time.perf_counter()
     cpu = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
     gpu = build_model(cfg, "cuda")
     gpu.load_state_dict(cpu.state_dict())
     rng = np.random.default_rng(0)
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, 64))).long()
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, prompt_len))).long()
     feed = torch.from_numpy(rng.integers(0, cfg.vocab, size=(4, 1, 1))).long()
     errs, agree = [], []
     with torch.no_grad():
-        lc, cc = cpu.prefill(prompt, pad_to=256)
-        lg, cg = gpu.prefill(prompt.cuda(), pad_to=256)
+        lc, cc = cpu.prefill(prompt, pad_to=prompt_len + 192)
+        lg, cg = gpu.prefill(prompt.cuda(), pad_to=prompt_len + 192)
         steps = [(lc, lg)]
         for i in range(4):
             lc, cc = cpu.decode_step(cc, feed[i])
@@ -257,26 +347,33 @@ def phase_parity() -> None:
             raise AssertionError(f"bad logits: shape {tuple(lg.shape)}")
         errs.append((lc - lg)[:, : cfg.vocab].abs().max().item())
         agree.append(int(lc.argmax()) == int(lg.argmax()))
-    print(f"[4 model parity] qwen3-4b full width, 2 layers, fp32, prefill 64 + 4 decode: "
+    print(f"[4 model parity] {arch} full width, 2 layers, fp32, prefill {prompt_len} + 4 decode: "
           f"max|d| per step {['%.2e' % e for e in errs]} tol={PARITY_ATOL:.0e}, "
           f"argmax agree {agree}, {time.perf_counter() - t0:.1f} s")
-    if max(errs) > PARITY_ATOL:
-        raise AssertionError(f"card and CPU logits differ by {max(errs)}")
+    if max(errs) > PARITY_ATOL or not all(agree):
+        raise AssertionError(f"{arch}: card and CPU logits differ by {max(errs)}, argmax agree {agree}")
     del cpu, gpu, cc, cg
     torch.cuda.empty_cache()
 
 
-def phase_serve() -> dict:
-    cfg = get_config("qwen3-4b")
-    n_req, prompt_len, max_new = 8, 128, 32
+def serve_path(arch: str, prompt_len: int, max_len: int, per_prefill: dict, per_decode: dict) -> dict:
+    """Serve 8 requests of ``arch`` at full width and depth in bf16, with
+    every launch count set to 0 just before; check that the path's kernels
+    ran ``layers`` times per prefill call (``per_prefill``) or per decode
+    call (``per_decode``) and the others not at all. Returns the counts."""
+    cfg = get_config(arch)
+    n_req, max_new = 8, 32
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = serve.build(cfg, "cuda")
-    flash_attention.launches = 0
-    paged_decode_attention.launches = 0
-    engine, m = serve.run(model, requests=n_req, prompt_len=prompt_len, max_new=max_new, max_batch=4)
-    launches = {"flash_attention": flash_attention.launches, "paged_decode": paged_decode_attention.launches}
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    engine, m = serve.run(model, requests=n_req, prompt_len=prompt_len, max_new=max_new, max_batch=4,
+                          max_len=max_len)
+    launches = {k: fn.launches for k, fn in WRAPPERS.items()}
     peak = torch.cuda.max_memory_allocated()
-    print(f"[5 serve] qwen3-4b {cfg.n_layers} layers d_model {cfg.d_model} bf16: requests {m['requests']}, "
+    print(f"[5 serve] {arch} {cfg.n_layers} layers d_model {cfg.d_model} bf16, prompt {prompt_len}, "
+          f"max_len {max_len}: requests {m['requests']}, "
           f"tokens {m['tokens']}, {m['tokens_per_s']:.2f} tok/s over {m['wall_s']:.3f} s, "
           f"mean TTFT {m['mean_ttft_s'] * 1e3:.2f} ms, mean latency {m['mean_latency_s'] * 1e3:.2f} ms, "
           f"peak memory {peak / 2**30:.3f} GiB, prefill calls {m['prefill_calls']}, "
@@ -285,10 +382,20 @@ def phase_serve() -> dict:
         raise AssertionError("not every request got its tokens")
     if not all(0 <= t < cfg.vocab for r in engine.finished for t in r.tokens):
         raise AssertionError("a token id outside the vocabulary")
-    if launches["flash_attention"] != cfg.n_layers * m["prefill_calls"] or m["prefill_calls"] != n_req:
-        raise AssertionError(f"flash launches {launches['flash_attention']} != layers x requests")
-    if launches["paged_decode"] != cfg.n_layers * m["decode_calls"] or m["decode_calls"] == 0:
-        raise AssertionError(f"paged-decode launches {launches['paged_decode']} != layers x decode calls")
+    if m["prefill_calls"] != n_req or m["decode_calls"] == 0:
+        raise AssertionError(f"prefill calls {m['prefill_calls']}, decode calls {m['decode_calls']}")
+    expect = {k: 0 for k in WRAPPERS}
+    expect.update({k: cfg.n_layers * m["prefill_calls"] for k in per_prefill})
+    expect.update({k: cfg.n_layers * m["decode_calls"] for k in per_decode})
+    if launches != expect:
+        raise AssertionError(f"{arch}: launches {launches} != layers x calls {expect}")
+    del model, engine
+    return {k: launches[k] for k in (*per_prefill, *per_decode)}
+
+
+def phase_serve() -> dict:
+    launches = serve_path("qwen3-4b", 128, 256, ("flash_attention",), ("paged_decode",))
+    launches.update(serve_path("mamba2-1.3b", 1024, 1280, ("ssd_states", "ssd_output"), ()))
     return launches
 
 
@@ -299,7 +406,8 @@ def main() -> int:
     name = phase_device()
     phase_build()
     results = phase_kernels()
-    phase_parity()
+    phase_parity("qwen3-4b", 64)
+    phase_parity("mamba2-1.3b", 512)
     launches = phase_serve()
     print("kernels: " + json.dumps({k: {"launches": launches[k], "max_abs_err": results[k]["max_abs_err"]}
                                     for k in KERNELS}))

@@ -1,4 +1,4 @@
-"""Public entry points of the attention kernels.
+"""Public entry points of the kernels.
 
 The device decides: a CUDA tensor goes to the hand-written CUDA kernel, a
 CPU tensor to its plain PyTorch version in :mod:`.ref`. There is no flag and
@@ -9,6 +9,7 @@ from __future__ import annotations
 from . import ref
 from .decode_attention import paged_decode_attention
 from .flash_attention import flash_attention
+from .ssd_scan import ssd_chunked_cuda
 
 
 def attention(q, k, v, *, causal=True, window=None):
@@ -21,3 +22,11 @@ def paged_decode(q, pages_k, pages_v, page_table, lengths):
     if q.is_cuda:
         return paged_decode_attention(q, pages_k, pages_v, page_table, lengths)
     return ref.paged_decode_reference(q, pages_k, pages_v, page_table, lengths)
+
+
+def ssd_scan(x, dA, B_, C_, chunk):
+    """Chunked SSD → (y in x's dtype, final state fp32). The CPU path is the
+    sequential oracle, as the reference's ``use_pallas=False`` path."""
+    if x.is_cuda:
+        return ssd_chunked_cuda(x, dA, B_, C_, chunk)
+    return ref.ssd_chunk_reference(x, dA, B_, C_)

@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of the attention kernels: the ground truth the CUDA
-kernels are held against, and what :mod:`.ops` runs on CPU tensors."""
+"""Plain PyTorch versions of the kernels: the ground truth the CUDA kernels
+are held against, and what :mod:`.ops` runs on CPU tensors."""
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -49,3 +50,62 @@ def paged_decode_reference(q, pages_k, pages_v, page_table, lengths):
     p = torch.where(valid[:, None, None], torch.softmax(s, dim=-1), 0.0)
     o = torch.einsum("bkgs,bskd->bkgd", p, vg.float())
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def ssd_chunk_reference(x, dA, B_, C_):
+    """Sequential SSD oracle. x (b,t,h,p); dA (b,t,h) log decay; B_/C_
+    (b,t,g,n). The state is carried in fp32. Returns (y in x's dtype,
+    final state (b,h,p,n) fp32)."""
+    b, t, h, p = x.shape
+    g, n = B_.shape[2], B_.shape[3]
+    hpg = h // g
+    st = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    xg = x.float()
+    for i in range(t):
+        dec = torch.exp(dA[:, i].float())  # (b,h)
+        Bx = torch.einsum("bgn,bghp->bghpn", B_[:, i].float(), xg[:, i].reshape(b, g, hpg, p))
+        st = st * dec[:, :, None, None] + Bx.reshape(b, h, p, n)
+        y = torch.einsum("bgn,bghpn->bghp", C_[:, i].float(), st.reshape(b, g, hpg, p, n))
+        ys.append(y.reshape(b, h, p))
+    return torch.stack(ys, dim=1).to(x.dtype), st
+
+
+def _chunked(a: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(b,t,...) → (b,nc,chunk,...) in fp32, the ragged tail padded with zeros
+    (an identity step: dA = 0, x = B = C = 0)."""
+    b, t = a.shape[:2]
+    nc = -(-t // chunk)
+    a = F.pad(a.float(), (0, 0) * (a.ndim - 2) + (0, nc * chunk - t))
+    return a.reshape(b, nc, chunk, *a.shape[2:])
+
+
+def ssd_states_reference(x, dA, B_, C_, chunk: int):
+    """Plain version of the ``ssd_states`` kernel (g = 1). Per (batch, chunk,
+    head): ``y_diag = (C·Bᵀ ⊙ L)·x`` with ``L = exp(cum_i − cum_j)`` for
+    i ≥ j, and the chunk state ``S = xᵀ·(B ⊙ exp(cum[-1] − cum))``, all in
+    fp32. Returns y_diag (b,nc,h,cs,p) and S (b,nc,h,p,n)."""
+    xc = _chunked(x, chunk)  # (b,nc,cs,h,p)
+    cum = torch.cumsum(_chunked(dA, chunk), dim=2)  # (b,nc,cs,h)
+    Bc, Cc = _chunked(B_[:, :, 0], chunk), _chunked(C_[:, :, 0], chunk)  # (b,nc,cs,n)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (b,nc,i,j,h)
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(torch.where(causal[:, :, None], seg, NEG_INF))
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[..., None] * L
+    y_diag = torch.einsum("bcijh,bcjhp->bchip", scores, xc)
+    decay = torch.exp(cum[:, :, -1:] - cum)  # (b,nc,cs,h)
+    S = torch.einsum("bcjhp,bcjn->bchpn", xc * decay[..., None], Bc)
+    return y_diag, S
+
+
+def ssd_output_reference(y_diag, dA, C_, H_in, dtype: torch.dtype):
+    """Plain version of the ``ssd_output`` kernel (g = 1):
+    ``y = y_diag + (C ⊙ exp(cum))·H_inᵀ`` per (batch, chunk, head), in fp32,
+    written as (b,t,h,p) in ``dtype``. y_diag (b,nc,h,cs,p) and H_in
+    (b,nc,h,p,n) fp32; dA (b,t,h); C_ (b,t,1,n)."""
+    b, nc, h, cs, p = y_diag.shape
+    t = dA.shape[1]
+    cum = torch.cumsum(_chunked(dA, cs), dim=2)  # (b,nc,cs,h)
+    Cd = _chunked(C_[:, :, 0], cs)[:, :, :, None, :] * torch.exp(cum)[..., None]  # (b,nc,cs,h,n)
+    y = y_diag + torch.einsum("bcihn,bchpn->bchip", Cd, H_in)
+    return y.permute(0, 1, 3, 2, 4).reshape(b, nc * cs, h, p)[:, :t].to(dtype)

@@ -3,6 +3,8 @@ of the serving path, after a warm-up request.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch qwen3-4b \
         --requests 4 --prompt-len 128 --max-new 16 --max-batch 4
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch mamba2-1.3b \
+        --requests 4 --prompt-len 1024 --max-new 16 --max-batch 4 --max-len 1280
 
 Prints the window's wall time (timed once without the profiler, then run
 again under it), the device's busy time (the sum of its kernel and copy
@@ -27,6 +29,8 @@ from repro_torch.launch import serve
 GROUPS = [  # (group, substrings of the kernel name), first match wins
     ("flash_attention kernel", ("flash_fwd_kernel",)),
     ("paged_decode kernel", ("paged_decode_kernel",)),
+    ("ssd_states kernel", ("ssd_states_kernel",)),
+    ("ssd_output kernel", ("ssd_output_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "splitk", "cublas", "nvjet")),
     ("copy/fill", ("memcpy", "memset", "copy", "fill")),
     ("reduction", ("reduce",)),
@@ -49,11 +53,12 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=serve.MAX_LEN)
     args = ap.parse_args(argv)
 
     model = serve.build(get_config(args.arch), resolve_device("cuda"))
     window = dict(requests=args.requests, prompt_len=args.prompt_len, max_new=args.max_new,
-                  max_batch=args.max_batch)
+                  max_batch=args.max_batch, max_len=args.max_len)
     serve.run(model, **{**window, "requests": 1})  # warm-up: kernel builds, cuBLAS, allocator
     _, plain = serve.run(model, **window)  # the window without the profiler
     with profile(activities=[ProfilerActivity.CUDA]) as prof:

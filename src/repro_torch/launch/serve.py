@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --requests 8 --prompt-len 128 --max-new 32 --max-batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+        --prompt-len 1024 --max-len 1280
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Weights are random, drawn
 from seed 0, in bf16 on the device one tensor at a time.
@@ -35,10 +37,11 @@ def build(cfg, device=None):
     return model.init(torch.Generator(device=dev).manual_seed(SEED))
 
 
-def run(model, *, requests: int, prompt_len: int, max_new: int, max_batch: int):
-    """Serve ``requests`` random prompts to completion; returns
-    ``(engine, metrics)`` with the wall time of the whole run."""
-    engine = ServingEngine(model, max_batch=max_batch, max_len=MAX_LEN)
+def run(model, *, requests: int, prompt_len: int, max_new: int, max_batch: int, max_len: int = MAX_LEN):
+    """Serve ``requests`` random prompts to completion in an engine of
+    ``max_len`` positions per sequence; returns ``(engine, metrics)`` with
+    the wall time of the whole run."""
+    engine = ServingEngine(model, max_batch=max_batch, max_len=max_len)
     rng = np.random.default_rng(SEED)
     _sync(model.device)
     t0 = time.perf_counter()
@@ -62,6 +65,7 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=MAX_LEN)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -70,7 +74,7 @@ def main(argv: list[str] | None = None) -> dict:
     if args.reduced:
         cfg = cfg.reduced()
     engine, m = run(build(cfg, dev), requests=args.requests, prompt_len=args.prompt_len,
-                    max_new=args.max_new, max_batch=args.max_batch)
+                    max_new=args.max_new, max_batch=args.max_batch, max_len=args.max_len)
     print("served:", m)
     for r in engine.finished[:3]:
         print(f"  req {r.req_id}: {len(r.tokens)} tokens, first 8 = {r.tokens[:8]}")

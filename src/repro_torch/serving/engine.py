@@ -10,7 +10,14 @@ As in the reference engine, each active sequence keeps its own contiguous
 cache and is decoded with its own ``decode_step`` call at B=1; the
 ``PagedKVCache`` does the page bookkeeping. On a CUDA device, prefill
 attention runs the flash kernel and decode attention the paged-decode
-kernel (over an identity-page view of the contiguous cache).
+kernel (over an identity-page view of the contiguous cache); an ssm model's
+prefill runs the SSD chunk kernels.
+
+An attention-free model (``n_heads == n_kv_heads == 0``, e.g. mamba2) runs
+unchanged: its cache is its own recurrent state, and the page arena is
+still allocated, as the reference engine does, with ``n_kv_heads → 1`` and
+``head_dim → d_model // max(n_heads, 1)``. That arena is bookkeeping only
+and is never read.
 """
 from __future__ import annotations
 

@@ -10,10 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
+from repro_torch.configs import get_config
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import paged_decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models import attention
+from repro_torch.kernels.ssd_scan import inter_chunk_scan, ssd_chunked_cuda, ssd_output, ssd_states
+from repro_torch.models import attention, build_model
 
 torch.set_num_threads(1)
 
@@ -112,3 +116,90 @@ def test_model_attention_on_card_matches_cpu(cuda):
         dev_len = cache_len.to(cuda) if isinstance(cache_len, torch.Tensor) else cache_len
         out = attention.decode_attention(qd.to(cuda), kc.to(cuda), vc.to(cuda), dev_len)
         _close(attention.decode_attention(qd, kc, vc, cache_len), out, "float32")
+
+
+# (b, t, h, p, n, chunk): the grid of tests/test_kernels.py::test_ssd_chunk_sweep,
+# then chunks of 100 and 256, ragged t, t under the chunk, p 128 with n 256,
+# and the serving shape of mamba2-1.3b
+SSD_GRID = [
+    (1, 128, 4, 32, 64, 32), (2, 256, 2, 64, 128, 64), (1, 64, 8, 16, 32, 64),
+    (1, 300, 2, 64, 128, 100), (2, 70, 3, 16, 16, 32), (1, 200, 2, 128, 256, 256),
+    (1, 1024, 64, 64, 128, 256),
+]
+# the JAX sweep's tolerance in fp32; in bf16 the inputs and y are bf16
+SSD_TOL = {"float32": (5e-4, 1e-3), "bfloat16": (2e-2, 1e-2)}
+
+
+def _ssd_inputs(rng, b, t, h, p, n, dtype, device):
+    x = _randn(rng, (b, t, h, p), dtype, device)
+    dA = -torch.from_numpy(np.abs(rng.normal(size=(b, t, h))).astype(np.float32)).to(device) * 0.3
+    B_, C_ = (_randn(rng, (b, t, 1, n), dtype, device) for _ in range(2))
+    return x, dA, B_, C_
+
+
+def _ssd_close(expect, out, dtype):
+    atol, rtol = SSD_TOL[dtype]
+    np.testing.assert_allclose(expect.float().cpu().numpy(), out.float().cpu().numpy(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,t,h,p,n,chunk", SSD_GRID)
+def test_ssd_kernels_match_plain(cuda, b, t, h, p, n, chunk, dtype):
+    x, dA, B_, C_ = _ssd_inputs(np.random.default_rng(0), b, t, h, p, n, dtype, cuda)
+    y_diag, S = ssd_states(x, dA, B_, C_, chunk)
+    yd_ref, S_ref = ref.ssd_states_reference(x, dA, B_, C_, chunk)
+    torch.cuda.synchronize()
+    _ssd_close(yd_ref, y_diag, "float32")  # fp32 outputs from the same inputs
+    _ssd_close(S_ref, S, "float32")
+    H_in, _ = inter_chunk_scan(S_ref, dA, chunk)
+    y = ssd_output(yd_ref, dA, C_, H_in, x.dtype)
+    torch.cuda.synchronize()
+    assert y.dtype == x.dtype and y.shape == x.shape
+    _ssd_close(ref.ssd_output_reference(yd_ref, dA, C_, H_in, x.dtype), y, dtype)
+    y, H_last = ssd_chunked_cuda(x, dA, B_, C_, chunk)
+    y_ref, H_ref = ref.ssd_chunk_reference(x, dA, B_, C_)
+    torch.cuda.synchronize()
+    assert H_last.dtype == torch.float32
+    _ssd_close(y_ref, y, dtype)
+    _ssd_close(H_ref, H_last, "float32")
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_rejects_cpu_tensors_and_groups(cuda):
+    rng = np.random.default_rng(3)
+    x, dA, B_, C_ = _ssd_inputs(rng, 1, 64, 2, 16, 16, "float32", "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_chunked_cuda(x, dA, B_, C_, 32)
+    x, dA = x.to(cuda), dA.to(cuda)
+    B2, C2 = (_randn(rng, (1, 64, 2, 16), "float32", cuda) for _ in range(2))
+    with pytest.raises(ValueError, match="g == 1"):
+        ssd_chunked_cuda(x, dA, B2, C2, 32)
+
+
+@pytest.mark.gpu
+def test_mamba2_full_width_on_card_matches_cpu(cuda):
+    """mamba2-1.3b at full width, 2 layers, fp32: a ragged 300-token prefill
+    (chunks of 256 and 44) and 2 decode steps, card (SSD kernels) against
+    CPU (the jnp port). Both sides are fp32; the logits differ only in
+    summation order, and the bf16 conv cache may round a last-ulp
+    difference to a neighbouring value."""
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), n_layers=2, dtype="float32")
+    cpu = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, 300))).long()
+    with torch.no_grad():
+        lc, cc = cpu.prefill(prompt)
+        lg, cg = gpu.prefill(prompt.to(cuda))
+        steps = [(lc, lg)]
+        for tok in (5, 7):
+            lc, cc = cpu.decode_step(cc, torch.tensor([[tok]]))
+            lg, cg = gpu.decode_step(cg, torch.tensor([[tok]], device=cuda))
+            steps.append((lc, lg))
+    for lc, lg in steps:
+        lg = lg.cpu()
+        assert torch.isfinite(lg).all()
+        np.testing.assert_allclose(lc[:, :cfg.vocab].numpy(), lg[:, :cfg.vocab].numpy(), atol=5e-3, rtol=0)
+        assert int(lc.argmax()) == int(lg.argmax())

@@ -151,3 +151,28 @@ def test_engine_tokens_equal_reference_engine():
     ref_done = {r.req_id: r.tokens for r in ref_engine.run_until_drained()}
     done = {r.req_id: r.tokens for r in engine.run_until_drained()}
     assert done == ref_done
+
+
+def test_engine_tokens_equal_reference_engine_mamba2():
+    """The attention-free model through the unchanged engine: same weights,
+    same prompts (40, 53 and 66 tokens: one, two and three chunks of 32 with
+    a ragged tail), fp32: the greedy tokens are identical."""
+    kw = dict(dtype="float32")
+    rcfg, cfg = ref_get_config("mamba2-1.3b").reduced(**kw), get_config("mamba2-1.3b").reduced(**kw)
+    ref_model = ref_build_model(rcfg)
+    params = ref_model.init(jax.random.key(2))
+    model = build_model(cfg, "cpu")
+    model.load_state_dict(flatten(params_from_jax(jax.tree.map(np.asarray, params))))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in (40, 53, 66)]
+    ref_engine = RefServingEngine(rcfg, params, max_batch=2, max_len=128, page_size=16)
+    engine = ServingEngine(model, max_batch=2, max_len=128, page_size=16)
+    # the unused arena, sized as the reference's: n_kv_heads → 1, head_dim → d_model // max(n_heads, 1)
+    assert engine.kv.pages_k[0].shape == (2 * (128 // 16 + 1) * 2, 16, 1, cfg.resolved_head_dim)
+    for rid, p in enumerate(prompts):
+        ref_engine.submit(RefRequest(rid, p, max_new_tokens=6))
+        engine.submit(Request(rid, p, max_new_tokens=6))
+    ref_done = {r.req_id: r.tokens for r in ref_engine.run_until_drained()}
+    done = {r.req_id: r.tokens for r in engine.run_until_drained()}
+    assert done == ref_done and all(len(t) == 6 for t in done.values())
+    assert (engine.prefill_calls, engine.decode_calls) == (3, 15)
