@@ -10,19 +10,23 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    (one nvcc per source, all started together);
 3. each kernel against its plain PyTorch version on the card, over the
    tests/test_kernels.py grids in fp32 and bf16 and at the serving shapes of
-   qwen3-4b (attention) and mamba2-1.3b (SSD), with times of kernel, plain
+   qwen3-4b (attention, head_dim 128), recurrentgemma-9b (attention at
+   head_dim 256, RG-LRU) and mamba2-1.3b (SSD), with times of kernel, plain
    version and the PyTorch library call where one exists (a yardstick only:
    the port never calls it) beside the bound;
 4. model parity, card (kernels) against CPU (plain path), fp32, one set of
-   seeded weights, full width cut to 2 layers: qwen3-4b with a 64-token
-   prefill and mamba2-1.3b with a 512-token prefill (2 chunks of 256), each
-   followed by 4 teacher-forced decode steps, logits compared;
+   seeded weights drawn on the card, full width cut in depth: qwen3-4b (2
+   layers) with a 64-token prefill, mamba2-1.3b (2 layers) with a 512-token
+   prefill (2 chunks of 256) and recurrentgemma-9b (3 layers, one RRA group)
+   with a 2048-token prefill, each followed by 4 teacher-forced decode steps
+   (recurrentgemma's wrap its 2048-slot ring), logits compared;
 5. serving: ``repro_torch.launch.serve`` at full width and depth in bf16:
    qwen3-4b (8 requests, prompt 128, 32 new tokens, max batch 4), then
-   mamba2-1.3b (8 requests, prompt 1024, 32 new tokens, max batch 4, max_len
-   1280); before each run every launch count is set to 0, and after it the
-   counts of that path's kernels are checked against its prefill and decode
-   calls;
+   mamba2-1.3b (8 requests, prompt 1024, max_len 1280), then
+   recurrentgemma-9b (8 requests, prompt 2048, max_len 2112: decode
+   overwrites ring slots); before each run every launch count is set to 0,
+   and after it each kernel's count is checked against the layers of its
+   kind times the prefill or decode calls;
 6. a ``kernels:`` summary line (launches and max|Δ| per kernel), the JSON
    line ``{"kernels": [...]}`` with every measured number, then the result
    line.
@@ -48,6 +52,7 @@ from repro_torch.kernels import flash_attention as flash_module  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
 from repro_torch.kernels.decode_attention import paged_decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import inter_chunk_scan, ssd_chunked_cuda, ssd_output, ssd_states  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -71,6 +76,9 @@ PAGED_GRID = [(2, 8, 4, 64, 16, 128, 4), (4, 4, 1, 128, 32, 128, 6), (2, 16, 8, 
 SSD_GRID = [(1, 128, 4, 32, 64, 32), (2, 256, 2, 64, 128, 64), (1, 64, 8, 16, 32, 64),
             (1, 300, 2, 64, 128, 100)]
 SSD_SERVING = (1, 1024, 64, 64, 128, 256)
+# (B, T, W): tests/test_kernels.py::test_rglru_sweep, then a ragged T and W
+RGLRU_GRID = [(2, 128, 256), (1, 256, 512), (1, 300, 200)]
+RGLRU_SERVING = (1, 2048, 4096)  # recurrentgemma-9b, prompt 2048
 TOL = {torch.float32: (2e-5, 1e-2), torch.bfloat16: (2e-2, 1e-2)}  # tests/test_kernels.py::_tol
 SSD_TOL = {torch.float32: (5e-4, 1e-3), torch.bfloat16: (2e-2, 1e-2)}  # test_ssd_chunk_sweep's; bf16 y
 PARITY_ATOL = 5e-3  # phase 4, see there
@@ -83,9 +91,11 @@ KERNELS = {
                        replaces="src/repro/kernels/ssd_scan.py:85"),
     "ssd_output": dict(route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
                        replaces="src/repro/kernels/ssd_scan.py:117"),
+    "rglru_scan": dict(route="cuda", source="src/repro_torch/csrc/rglru_scan.cu",
+                       replaces="src/repro/kernels/rglru_scan.py:68"),
 }
 WRAPPERS = {"flash_attention": flash_attention, "paged_decode": paged_decode_attention,
-            "ssd_states": ssd_states, "ssd_output": ssd_output}
+            "ssd_states": ssd_states, "ssd_output": ssd_output, "rglru_scan": rglru_scan}
 
 
 def randn(rng, shape, dtype):
@@ -117,10 +127,10 @@ def _events_ms(run, n) -> float:
     return start.elapsed_time(end) / n
 
 
-def eager_ms(fn, iters=200) -> float:
+def eager_ms(fn, iters=200, warmup=10) -> float:
     """Time per call of back-to-back eager calls: the larger of the host's
     launch cost and the device time."""
-    for _ in range(10):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     return _events_ms(lambda: [fn() for _ in range(iters)], iters)
@@ -144,12 +154,15 @@ def device_ms(fn, iters=100, reps=5) -> float:
     return _events_ms(lambda: [graph.replay() for _ in range(reps)], iters * reps)
 
 
-def timings(kernel, plain, library=None) -> dict:
-    """``library`` None: no single PyTorch call computes the function."""
-    t = dict(ms=device_ms(kernel), plain_ms=device_ms(plain),
-             library_ms=device_ms(library) if library else None,
-             eager_ms=eager_ms(kernel), plain_eager_ms=eager_ms(plain, 50),
-             library_eager_ms=eager_ms(library) if library else None)
+def timings(kernel, plain, library=None, iters=100, plain_iters=100) -> dict:
+    """``library`` None: no single PyTorch call computes the function. Fewer
+    ``iters`` for calls of milliseconds; fewer ``plain_iters`` for a plain
+    version of thousands of launches (a CUDA graph holds them all)."""
+    t = dict(ms=device_ms(kernel, iters), plain_ms=device_ms(plain, plain_iters, min(5, plain_iters)),
+             library_ms=device_ms(library, iters) if library else None,
+             eager_ms=eager_ms(kernel, 2 * iters),
+             plain_eager_ms=eager_ms(plain, min(50, plain_iters), min(10, plain_iters)),
+             library_eager_ms=eager_ms(library, 2 * iters) if library else None)
     print("  " + ", ".join(f"{k} {v:.4f}" if v is not None else f"{k} none" for k, v in t.items()))
     return t
 
@@ -177,11 +190,12 @@ def phase_build() -> None:
         print(f"  {rep.name}: {rep.seconds:.1f} s -> {rep.path.name}")
         for line in rep.resources():
             print(f"    {line}")
-    hds = (16, 32, 64, 128)
+    hds = (16, 32, 64, 128, 256)
     print("  dynamic shared memory per block: flash_attention "
           + ", ".join(f"hd {hd}: {flash_module.shared_memory_bytes(hd)} B" for hd in hds)
           + "; paged_decode at G=4 "
-          + ", ".join(f"hd {hd}: {decode_attention.shared_memory_bytes(hd, 4)} B" for hd in hds))
+          + ", ".join(f"hd {hd}: {decode_attention.shared_memory_bytes(hd, 4)} B" for hd in hds)
+          + f"; paged_decode at hd 256, G=16 (recurrentgemma-9b): {decode_attention.shared_memory_bytes(256, 16)} B")
     print("  ssd_states, ssd_output at p 64, n 128: %s B; at p 128, n 256: %s B"
           % (ssd_scan.shared_memory_bytes(64, 128), ssd_scan.shared_memory_bytes(128, 256)))
 
@@ -250,8 +264,115 @@ def phase_kernels() -> dict:
                 lambda: ref.paged_decode_reference(q, pk, pv, pt, lens),
                 lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True))
     results["paged_decode"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)
+    hd256 = phase_hd256_kernels(rng)
+    results["flash_attention"]["hd256"] = hd256["flash_attention"]
+    results["paged_decode"]["hd256"] = hd256["paged_decode"]
     results.update(phase_ssd_kernels(rng))
+    results.update(phase_rglru_kernel(rng))
     return results
+
+
+def phase_hd256_kernels(rng) -> dict:
+    """Both attention kernels at head_dim 256 with recurrentgemma-9b's MQA
+    (16 query heads on 1 kv head): checked on small cases, then checked and
+    timed at its serving shapes (a 2048-token prefill with window 2048; decode
+    over the full 2048-slot ring)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, T, window in ((1, 256, None), (1, 512, 128), (2, 200, None)):
+            q = randn(rng, (B, T, 16, 256), dtype)
+            k, v = randn(rng, (B, T, 1, 256), dtype), randn(rng, (B, T, 1, 256), dtype)
+            check(f"flash hd 256 {B},{T},16,1 window={window} {dtype}",
+                  flash_attention(q, k, v, window=window), ref.mha_reference(q, k, v, window=window), TOL[dtype])
+        q = randn(rng, (2, 16, 256), dtype)
+        pk, pv = randn(rng, (16, 64, 1, 256), dtype), randn(rng, (16, 64, 1, 256), dtype)
+        pt = torch.from_numpy(rng.integers(0, 16, size=(2, 6)).astype(np.int32)).cuda()
+        lens = torch.tensor([1, 6 * 64], dtype=torch.int32, device="cuda")
+        check(f"paged hd 256 2,16,1,16,64,6 {dtype}", paged_decode_attention(q, pk, pv, pt, lens),
+              ref.paged_decode_reference(q, pk, pv, pt, lens), TOL[dtype])
+
+    dt, es = torch.bfloat16, 2
+    out = {}
+    B, T, H, K, hd, W = 1, 2048, 16, 1, 256, 2048
+    q = randn(rng, (B, T, H, hd), dt)
+    k, v = randn(rng, (B, T, K, hd), dt), randn(rng, (B, T, K, hd), dt)
+    err = check("flash hd 256 serving shape (window 2048)", flash_attention(q, k, v, window=W),
+                ref.mha_reference(q, k, v, window=W), TOL[dt])
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
+    flops = 4 * hd * H * B * T * (T + 1) // 2  # window 2048 = T: every causal pair
+    bound_ms, by = bound(nbytes, flops, dt)
+    print(f"  flash hd 256 serving shape, ms per call (sdpa = library yardstick), "
+          f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
+    t = timings(lambda: flash_attention(q, k, v, window=W), lambda: ref.mha_reference(q, k, v, window=W),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+                iters=10, plain_iters=10)
+    out["flash_attention"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)
+
+    S, page = 2048, 64
+    kc, vc = randn(rng, (1, S, K, hd), dt), randn(rng, (1, S, K, hd), dt)
+    pk, pv = kc.view(S // page, page, K, hd), vc.view(S // page, page, K, hd)
+    pt = torch.arange(S // page, dtype=torch.int32, device="cuda").view(1, -1)
+    q = randn(rng, (1, H, hd), dt)
+    err = 0.0
+    for length in (0, 1, 63, 64, 1000, 2047, 2048):
+        lens = torch.tensor([length], dtype=torch.int32, device="cuda")
+        err = max(err, check(f"paged hd 256 ring view, length {length}", paged_decode_attention(q, pk, pv, pt, lens),
+                             ref.paged_decode_reference(q, pk, pv, pt, lens), TOL[dt]))
+    lens = torch.tensor([S], dtype=torch.int32, device="cuda")
+    qs, ks, vs = q.view(1, H, 1, hd), kc.transpose(1, 2), vc.transpose(1, 2)
+    nbytes = 2 * S * K * hd * es + 2 * q.numel() * es + pt.numel() * 4 + 4
+    flops = 4 * H * hd * S
+    bound_ms, by = bound(nbytes, flops, dt)
+    print(f"  paged hd 256 over the full 2048-slot ring, ms per call (sdpa = library yardstick), "
+          f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
+    t = timings(lambda: paged_decode_attention(q, pk, pv, pt, lens),
+                lambda: ref.paged_decode_reference(q, pk, pv, pt, lens),
+                lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True))
+    out["paged_decode"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)
+    return out
+
+
+def rglru_inputs(rng, B, T, W, dtype):
+    x = randn(rng, (B, T, W), dtype)
+    r, i = (torch.from_numpy(rng.uniform(size=(B, T, W)).astype(np.float32)).to("cuda", dtype) for _ in range(2))
+    lam = torch.from_numpy(rng.uniform(0.5, 4.0, size=(W,)).astype(np.float32)).cuda()
+    return x, r, i, lam
+
+
+def check_rglru(name, x, r, i, lam, h0=None) -> float:
+    y, h = rglru_scan(x, r, i, lam, h0)
+    y_ref, h_ref = ref.rglru_reference(x, r, i, lam, h0)
+    return max(check(f"rglru y {name}", y, y_ref, TOL[x.dtype]),
+               check(f"rglru h_last {name}", h, h_ref, TOL[torch.float32]))
+
+
+def phase_rglru_kernel(rng) -> dict:
+    """The RG-LRU kernel against its plain version (the sequential loop) over
+    the tests/test_kernels.py grid and a ragged shape in fp32 and bf16, with
+    a carried h0 (two calls against one), then checked and timed at
+    recurrentgemma-9b's serving shape in bf16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, T, W in RGLRU_GRID:
+            check_rglru(f"{B},{T},{W} {dtype}", *rglru_inputs(rng, B, T, W, dtype))
+    x, r, i, lam = rglru_inputs(rng, 1, 128, 128, torch.float32)
+    y1, h1 = rglru_scan(x[:, :64], r[:, :64], i[:, :64], lam)
+    y2, h2 = rglru_scan(x[:, 64:], r[:, 64:], i[:, 64:], lam, h1)
+    y_ref, h_ref = ref.rglru_reference(x, r, i, lam)
+    check("rglru carried h0, y (two calls vs one)", torch.cat([y1, y2], 1), y_ref, (1e-5, 0.0))
+    check("rglru carried h0, h_last", h2, h_ref, (1e-5, 0.0))
+
+    dt, es = torch.bfloat16, 2
+    B, T, W = RGLRU_SERVING
+    x, r, i, lam = rglru_inputs(rng, B, T, W, dt)
+    err = check_rglru("serving shape", x, r, i, lam)
+    # x, r, i read once, y written once (bf16); lam read and h_last written (fp32)
+    nbytes = 4 * B * T * W * es + 4 * W + 4 * B * W
+    flops = 6 * B * T * W  # r·base, 2·log_a, 1 − e, i·x, β·u, a·h + (FMA): negligible beside the bytes
+    bound_ms, by = bound(nbytes, flops, torch.float32)
+    print(f"  rglru serving shape, ms per call (no library call computes it), "
+          f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP fp32 + {2 * B * T * W} exp, {B * T * W} sqrt):")
+    t = timings(lambda: rglru_scan(x, r, i, lam), lambda: ref.rglru_reference(x, r, i, lam), plain_iters=2)
+    return {"rglru_scan": dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)}
 
 
 def ssd_inputs(rng, b, t, h, p, n, dtype):
@@ -312,23 +433,26 @@ def phase_ssd_kernels(rng) -> dict:
     return results
 
 
-def phase_parity(arch: str, prompt_len: int) -> None:
+def phase_parity(arch: str, prompt_len: int, n_layers: int = 2) -> None:
     """Teacher-forced logits, card (kernels) against CPU (plain path), fp32.
 
     Tolerance PARITY_ATOL on logits of magnitude ~4: both sides compute in
     fp32 (TF32 off) and differ only in summation order (~1e-5), except that
-    a cache is bf16 on both (qwen3's KV cache, mamba2's conv tails); a
-    last-ulp fp32 difference can round a cached element to the neighbouring
-    bf16 value (2^-8 relative), which moves a logit by far less than 1e-3.
-    mamba2's SSD runs in fp32 throughout on the card and, in an fp32 model,
-    on the CPU too."""
+    a cache is bf16 on both (qwen3's KV cache, mamba2's conv tails,
+    recurrentgemma's conv tails and ring K/V); a last-ulp fp32 difference can
+    round a cached element to the neighbouring bf16 value (2^-8 relative),
+    which moves a logit by far less than 1e-3. mamba2's SSD and
+    recurrentgemma's RG-LRU run in fp32 throughout on the card and, in an
+    fp32 model, on the CPU too. The weights are drawn on the card (faster
+    than on the CPU at recurrentgemma's 8.4 GB of fp32 embeddings) and
+    copied to the CPU."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype="float32")
     t0 = time.perf_counter()
-    cpu = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
-    gpu = build_model(cfg, "cuda")
-    gpu.load_state_dict(cpu.state_dict())
+    gpu = build_model(cfg, "cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    cpu = build_model(cfg, "cpu")
+    cpu.load_state_dict(gpu.state_dict())
     rng = np.random.default_rng(0)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, prompt_len))).long()
     feed = torch.from_numpy(rng.integers(0, cfg.vocab, size=(4, 1, 1))).long()
@@ -347,7 +471,7 @@ def phase_parity(arch: str, prompt_len: int) -> None:
             raise AssertionError(f"bad logits: shape {tuple(lg.shape)}")
         errs.append((lc - lg)[:, : cfg.vocab].abs().max().item())
         agree.append(int(lc.argmax()) == int(lg.argmax()))
-    print(f"[4 model parity] {arch} full width, 2 layers, fp32, prefill {prompt_len} + 4 decode: "
+    print(f"[4 model parity] {arch} full width, {n_layers} layers, fp32, prefill {prompt_len} + 4 decode: "
           f"max|d| per step {['%.2e' % e for e in errs]} tol={PARITY_ATOL:.0e}, "
           f"argmax agree {agree}, {time.perf_counter() - t0:.1f} s")
     if max(errs) > PARITY_ATOL or not all(agree):
@@ -356,11 +480,25 @@ def phase_parity(arch: str, prompt_len: int) -> None:
     torch.cuda.empty_cache()
 
 
-def serve_path(arch: str, prompt_len: int, max_len: int, per_prefill: dict, per_decode: dict) -> dict:
+def layers_per_call(cfg) -> dict:
+    """{kernel: (launches per prefill call, per decode call)}: one per layer
+    of the kernel's kind; kernels not listed launch never."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        return {"ssd_states": (L, 0), "ssd_output": (L, 0)}
+    if cfg.family == "hybrid":
+        p = cfg.layer_pattern
+        kinds = p * (L // len(p)) + p[: L % len(p)]
+        n_rec, n_attn = kinds.count("R"), kinds.count("A")
+        return {"rglru_scan": (n_rec, 0), "flash_attention": (n_attn, 0), "paged_decode": (0, n_attn)}
+    return {"flash_attention": (L, 0), "paged_decode": (0, L)}
+
+
+def serve_path(arch: str, prompt_len: int, max_len: int) -> dict:
     """Serve 8 requests of ``arch`` at full width and depth in bf16, with
-    every launch count set to 0 just before; check that the path's kernels
-    ran ``layers`` times per prefill call (``per_prefill``) or per decode
-    call (``per_decode``) and the others not at all. Returns the counts."""
+    every launch count set to 0 just before; check that each kernel ran once
+    per layer of its kind per prefill or decode call (``layers_per_call``)
+    and the others not at all. Returns the counts of the path's kernels."""
     cfg = get_config(arch)
     n_req, max_new = 8, 32
     torch.cuda.empty_cache()
@@ -384,19 +522,20 @@ def serve_path(arch: str, prompt_len: int, max_len: int, per_prefill: dict, per_
         raise AssertionError("a token id outside the vocabulary")
     if m["prefill_calls"] != n_req or m["decode_calls"] == 0:
         raise AssertionError(f"prefill calls {m['prefill_calls']}, decode calls {m['decode_calls']}")
+    per_call = layers_per_call(cfg)
     expect = {k: 0 for k in WRAPPERS}
-    expect.update({k: cfg.n_layers * m["prefill_calls"] for k in per_prefill})
-    expect.update({k: cfg.n_layers * m["decode_calls"] for k in per_decode})
+    expect.update({k: pre * m["prefill_calls"] + dec * m["decode_calls"] for k, (pre, dec) in per_call.items()})
     if launches != expect:
-        raise AssertionError(f"{arch}: launches {launches} != layers x calls {expect}")
+        raise AssertionError(f"{arch}: launches {launches} != layers of each kind x calls {expect}")
     del model, engine
-    return {k: launches[k] for k in (*per_prefill, *per_decode)}
+    return {k: launches[k] for k in per_call}
 
 
 def phase_serve() -> dict:
-    launches = serve_path("qwen3-4b", 128, 256, ("flash_attention",), ("paged_decode",))
-    launches.update(serve_path("mamba2-1.3b", 1024, 1280, ("ssd_states", "ssd_output"), ()))
-    return launches
+    """{arch: {kernel: launches}} of each path's serving run."""
+    return {arch: serve_path(arch, prompt_len, max_len)
+            for arch, prompt_len, max_len in (("qwen3-4b", 128, 256), ("mamba2-1.3b", 1024, 1280),
+                                              ("recurrentgemma-9b", 2048, 2112))}
 
 
 def main() -> int:
@@ -408,10 +547,21 @@ def main() -> int:
     results = phase_kernels()
     phase_parity("qwen3-4b", 64)
     phase_parity("mamba2-1.3b", 512)
-    launches = phase_serve()
-    print("kernels: " + json.dumps({k: {"launches": launches[k], "max_abs_err": results[k]["max_abs_err"]}
-                                    for k in KERNELS}))
-    line = {"kernels": [{"name": k, **KERNELS[k], "launches": launches[k], **results[k]} for k in KERNELS]}
+    phase_parity("recurrentgemma-9b", 2048, n_layers=3)
+    by_path = phase_serve()
+    # a kernel's launches: those of the first path that runs it, whose shapes
+    # its top-level times are taken at; every path's count beside them, and
+    # the head_dim-256 times with recurrentgemma-9b's count
+    line = {"kernels": []}
+    for k in KERNELS:
+        counts = {arch: c[k] for arch, c in by_path.items() if k in c}
+        entry = {"name": k, **KERNELS[k], "launches": next(iter(counts.values())), "launches_by_path": counts,
+                 **results[k]}
+        if "hd256" in entry:
+            entry["hd256"] = {**entry["hd256"], "launches": counts["recurrentgemma-9b"]}
+        line["kernels"].append(entry)
+    print("kernels: " + json.dumps({e["name"]: {"launches": e["launches_by_path"], "max_abs_err": e["max_abs_err"]}
+                                    for e in line["kernels"]}))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 """Architecture registry — ``--arch <id>`` resolution.
 
-Lists the configs that the port serves so far (dense and ssm); the other
-families arrive with their models.
+Lists the configs that the port serves so far (dense, ssm and hybrid); the
+other families arrive with their models.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ _ARCH_MODULES = {
     "llama3-8b": "llama3_8b",
     "mamba2-1.3b": "mamba2_1_3b",
     "qwen3-4b": "qwen3_4b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 ARCH_IDS = list(_ARCH_MODULES)

@@ -14,6 +14,12 @@
 // here). The products run on CUDA cores in fp32; moving them onto the tensor
 // cores (wgmma) is later work, and is what a long prompt would need.
 //
+// head_dim 256 (recurrentgemma-9b: 16 query heads on 1 kv head, a 2048-token
+// window) is a further instantiation of the same code: a block needs 102,912 B
+// of shared memory (two blocks per SM) and each thread holds 32 accumulators.
+// At T = 2048 a prefill call does ~34 GFLOP on CUDA cores in fp32, where the
+// tensor cores would bound it at ~35 us: it is operation-bound and slow.
+//
 // Layout: one block per (batch, kv head, tile of BR folded query rows). Row
 // r of the fold is query position r / G and head kv_head * G + r % G, so the
 // G query heads of a kv head share each K/V tile. Causal blocks stop at the
@@ -195,6 +201,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, in
     case 32: return launch<T, 32>(q, k, v, o, B, T_len, S, H, K, qs, ks, vs, os, causal, window, st);
     case 64: return launch<T, 64>(q, k, v, o, B, T_len, S, H, K, qs, ks, vs, os, causal, window, st);
     case 128: return launch<T, 128>(q, k, v, o, B, T_len, S, H, K, qs, ks, vs, os, causal, window, st);
+    case 256: return launch<T, 256>(q, k, v, o, B, T_len, S, H, K, qs, ks, vs, os, causal, window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -231,6 +238,7 @@ int flash_attention_smem_bytes(int hd) {
     case 32: return smem_floats<32>() * sizeof(float);
     case 64: return smem_floats<64>() * sizeof(float);
     case 128: return smem_floats<128>() * sizeof(float);
+    case 256: return smem_floats<256>() * sizeof(float);
     default: return -1;
   }
 }

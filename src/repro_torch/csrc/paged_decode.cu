@@ -20,6 +20,11 @@
 // rows. Tokens are visited in tiles of 32 (one lane per token), whatever the
 // page size. At B = 1 and K = 8 this fills 8 of the 132 SMs; splitting the
 // pages over more blocks with a combine step is later work.
+//
+// head_dim 256 (recurrentgemma-9b, G = 16 query heads on its one kv head,
+// decoding over a 2048-slot ring) is a further instantiation: 100,928 B of
+// shared memory at G = 16, and the grid is one block at B = 1, which walks
+// the whole 2 MB ring alone.
 #include <cmath>
 
 #include <cuda_bf16.h>
@@ -182,6 +187,7 @@ int dispatch_hd(int hd, const void* q, const void* pk, const void* pv, const int
     case 32: return launch<TQ, TKV, 32>(q, pk, pv, pt, lengths, o, B, K, a, st);
     case 64: return launch<TQ, TKV, 64>(q, pk, pv, pt, lengths, o, B, K, a, st);
     case 128: return launch<TQ, TKV, 128>(q, pk, pv, pt, lengths, o, B, K, a, st);
+    case 256: return launch<TQ, TKV, 256>(q, pk, pv, pt, lengths, o, B, K, a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -226,6 +232,7 @@ int paged_decode_smem_bytes(int hd, int G) {
     case 32: return smem_bytes<32>(G);
     case 64: return smem_bytes<64>(G);
     case 128: return smem_bytes<128>(G);
+    case 256: return smem_bytes<256>(G);
     default: return -1;
   }
 }

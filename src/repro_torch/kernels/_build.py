@@ -22,6 +22,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "paged_decode": "paged_decode.cu",
     "ssd_scan": "ssd_scan.cu",
+    "rglru_scan": "rglru_scan.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

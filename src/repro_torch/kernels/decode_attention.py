@@ -14,7 +14,7 @@ import torch
 
 from . import _build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None

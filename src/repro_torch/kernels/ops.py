@@ -9,6 +9,7 @@ from __future__ import annotations
 from . import ref
 from .decode_attention import paged_decode_attention
 from .flash_attention import flash_attention
+from .rglru_scan import rglru_scan
 from .ssd_scan import ssd_chunked_cuda
 
 
@@ -30,3 +31,12 @@ def ssd_scan(x, dA, B_, C_, chunk):
     if x.is_cuda:
         return ssd_chunked_cuda(x, dA, B_, C_, chunk)
     return ref.ssd_chunk_reference(x, dA, B_, C_)
+
+
+def rglru(x, r, i, lam, h0=None):
+    """RG-LRU recurrence → (y in x's dtype, h_last fp32). The CPU path is the
+    sequential plain version (the reference's associative scan computes the
+    same function in another summation order)."""
+    if x.is_cuda:
+        return rglru_scan(x, r, i, lam, h0)
+    return ref.rglru_reference(x, r, i, lam, h0)

@@ -109,3 +109,22 @@ def ssd_output_reference(y_diag, dA, C_, H_in, dtype: torch.dtype):
     Cd = _chunked(C_[:, :, 0], cs)[:, :, :, None, :] * torch.exp(cum)[..., None]  # (b,nc,cs,h,n)
     y = y_diag + torch.einsum("bcihn,bchpn->bchip", Cd, H_in)
     return y.permute(0, 1, 3, 2, 4).reshape(b, nc * cs, h, p)[:, :t].to(dtype)
+
+
+def rglru_reference(x, r, i, lam, h0=None):
+    """Sequential RG-LRU in fp32. x/r/i (B,T,W); lam (W,); h0 (B,W) or None
+    (zeros). ``a = exp(r·(−8·softplus(λ)))``, ``β = √max(1 − a², 1e-12)``
+    with a² as ``exp(2·log a)``, ``h = a·h + β·(i·x)``; softplus without a
+    threshold. Returns (y (B,T,W) in x's dtype, h_last (B,W) fp32)."""
+    B, T, W = x.shape
+    lam = lam.float()
+    log_a_base = -8.0 * (lam.clamp(min=0) + torch.log1p(torch.exp(-lam.abs())))
+    h = torch.zeros((B, W), dtype=torch.float32, device=x.device) if h0 is None else h0.float()
+    ys = []
+    for t in range(T):
+        log_a = r[:, t].float() * log_a_base
+        a = torch.exp(log_a)
+        beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+        h = a * h + beta * (i[:, t].float() * x[:, t].float())
+        ys.append(h)
+    return torch.stack(ys, dim=1).to(x.dtype), h

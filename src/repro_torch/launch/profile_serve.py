@@ -5,6 +5,8 @@ of the serving path, after a warm-up request.
         --requests 4 --prompt-len 128 --max-new 16 --max-batch 4
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch mamba2-1.3b \
         --requests 4 --prompt-len 1024 --max-new 16 --max-batch 4 --max-len 1280
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch recurrentgemma-9b \
+        --requests 4 --prompt-len 2048 --max-new 16 --max-batch 4 --max-len 2112
 
 Prints the window's wall time (timed once without the profiler, then run
 again under it), the device's busy time (the sum of its kernel and copy
@@ -31,6 +33,7 @@ GROUPS = [  # (group, substrings of the kernel name), first match wins
     ("paged_decode kernel", ("paged_decode_kernel",)),
     ("ssd_states kernel", ("ssd_states_kernel",)),
     ("ssd_output kernel", ("ssd_output_kernel",)),
+    ("rglru_scan kernel", ("rglru_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "splitk", "cublas", "nvjet")),
     ("copy/fill", ("memcpy", "memset", "copy", "fill")),
     ("reduction", ("reduce",)),

@@ -4,6 +4,10 @@
         --requests 8 --prompt-len 128 --max-new 32 --max-batch 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
         --prompt-len 1024 --max-len 1280
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
+        --prompt-len 2048 --max-new 32 --max-len 2112
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
+        --reduced --device cpu --prompt-len 40 --max-len 64
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Weights are random, drawn
 from seed 0, in bf16 on the device one tensor at a time.

@@ -5,6 +5,8 @@ Plain functions on tensors, with the reference's numerics: norms scale by
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -71,11 +73,33 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
 # activations
 # ---------------------------------------------------------------------------
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + eˣ)`` without a threshold, as ``jax.nn.softplus``
+    (``F.softplus`` returns x itself above 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximate GELU written op by op as ``jax.nn.gelu(x,
+    approximate=True)`` writes it, with its constants in x's dtype, so that
+    a bf16 input is rounded at the same points as in the reference
+    (``F.gelu`` computes in fp32 and rounds once, a few bf16 ulps away)."""
+    c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype, device=x.device)
+    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + e⁻ˣ)`` op by op, as XLA expands ``jax.nn.sigmoid``, so
+    that a bf16 input is rounded at the same points as in the reference."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def glu_activation(gate: torch.Tensor, up: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "swiglu":
         return F.silu(gate) * up
     if kind == "geglu":
-        return F.gelu(gate, approximate="tanh") * up
+        return gelu_tanh(gate) * up
     raise ValueError(kind)
 
 

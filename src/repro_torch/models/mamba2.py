@@ -22,7 +22,7 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from .common import embed_tokens, init_truncated_normal_, logits_from_hidden, rmsnorm
+from .common import embed_tokens, init_truncated_normal_, logits_from_hidden, rmsnorm, softplus
 
 NEG_INF = -1e30
 CACHE_DTYPE = torch.bfloat16  # the conv cache is bf16 whatever the compute dtype, as in the reference
@@ -34,12 +34,6 @@ def _dims(cfg):
     nh = d_in // cfg.ssm_head_dim
     conv_dim = d_in + 2 * cfg.ssm_groups * cfg.ssm_state
     return d_in, nh, conv_dim
-
-
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``log(1 + eˣ)`` without a threshold, as ``jax.nn.softplus``
-    (``F.softplus`` returns x itself above 20)."""
-    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 # ---------------------------------------------------------------------------

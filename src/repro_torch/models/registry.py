@@ -4,17 +4,19 @@ from __future__ import annotations
 import torch
 
 from .mamba2 import Mamba2LM
+from .rglru import GriffinLM
 from .transformer import TransformerLM
 
 
 def build_model(cfg, device=None, param_dtype: torch.dtype = torch.float32):
-    """dense | vlm → :class:`TransformerLM`, ssm → :class:`Mamba2LM`, on
-    ``device`` (``cuda`` by default)."""
+    """dense | vlm → :class:`TransformerLM`, ssm → :class:`Mamba2LM`, hybrid →
+    :class:`GriffinLM`, on ``device`` (``cuda`` by default)."""
     if cfg.family in ("dense", "vlm"):
         return TransformerLM(cfg, device=device, param_dtype=param_dtype)
     if cfg.family == "ssm":
         return Mamba2LM(cfg, device=device, param_dtype=param_dtype)
+    if cfg.family == "hybrid":
+        return GriffinLM(cfg, device=device, param_dtype=param_dtype)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: moe, hybrid and audio are "
-        "ROADMAP Queue A items 13, 15 and 16"
+        f"family {cfg.family!r} is not ported yet: moe and audio are ROADMAP Queue A items 13 and 16"
     )

@@ -32,6 +32,44 @@ from .common import (
 CACHE_DTYPE = torch.bfloat16  # the KV cache is bf16 whatever the compute dtype, as in the reference
 
 
+def attn_params(cfg, L: int, p) -> nn.ParameterDict:
+    """The reference's ``init_attn`` tree for ``L`` stacked layers, each
+    leaf made by ``p(*shape)``."""
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    attn = {"wq": p(L, d, H * hd), "wk": p(L, d, K * hd), "wv": p(L, d, K * hd), "wo": p(L, H * hd, d)}
+    if cfg.attention_bias:
+        attn.update(bq=p(L, H * hd), bk=p(L, K * hd), bv=p(L, K * hd))
+    if cfg.qk_norm:
+        attn.update(q_norm=p(L, hd), k_norm=p(L, hd))
+    return nn.ParameterDict(attn)
+
+
+def mlp_params(cfg, L: int, p) -> nn.ParameterDict:
+    """The reference's ``init_mlp`` tree for ``L`` stacked layers."""
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.activation == "gelu":
+        return nn.ParameterDict({"w_up": p(L, d, ff), "w_down": p(L, ff, d)})
+    return nn.ParameterDict({"w_gate": p(L, d, ff), "w_up": p(L, d, ff), "w_down": p(L, ff, d)})
+
+
+@torch.no_grad()
+def init_attn_(attn: nn.ParameterDict, cfg, generator: torch.Generator) -> None:
+    """The reference's stds: ``d^-½`` for wq/wk/wv, ``(H·hd)^-½`` for wo;
+    biases and qk-norm scales stay zero."""
+    for name in ("wq", "wk", "wv"):
+        init_truncated_normal_(attn[name], cfg.d_model**-0.5, generator)
+    init_truncated_normal_(attn["wo"], (cfg.n_heads * cfg.resolved_head_dim) ** -0.5, generator)
+
+
+@torch.no_grad()
+def init_mlp_(mlp: nn.ParameterDict, cfg, generator: torch.Generator) -> None:
+    """The reference's stds: ``d^-½`` in, ``d_ff^-½`` out."""
+    for name in ("w_gate", "w_up"):
+        if name in mlp:
+            init_truncated_normal_(mlp[name], cfg.d_model**-0.5, generator)
+    init_truncated_normal_(mlp["w_down"], cfg.d_ff**-0.5, generator)
+
+
 def apply_mlp(lp: dict, h: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.activation == "gelu":
         u = torch.nn.functional.gelu(h @ lp["w_up"].to(h.dtype), approximate="tanh")
@@ -79,8 +117,7 @@ class TransformerLM(nn.Module):
             )
         self.cfg = cfg
         dev = resolve_device(device)
-        d, H, K, hd, L = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
-        V, ff = cfg.padded_vocab, cfg.d_ff
+        d, L, V = cfg.d_model, cfg.n_layers, cfg.padded_vocab
 
         def p(*shape):
             return nn.Parameter(torch.zeros(shape, dtype=param_dtype, device=dev), requires_grad=False)
@@ -88,18 +125,10 @@ class TransformerLM(nn.Module):
         self.embed = p(V, d)
         self.ln1 = p(L, d)
         self.ln_f = p(d)
-        attn = {"wq": p(L, d, H * hd), "wk": p(L, d, K * hd), "wv": p(L, d, K * hd), "wo": p(L, H * hd, d)}
-        if cfg.attention_bias:
-            attn.update(bq=p(L, H * hd), bk=p(L, K * hd), bv=p(L, K * hd))
-        if cfg.qk_norm:
-            attn.update(q_norm=p(L, hd), k_norm=p(L, hd))
-        self.attn = nn.ParameterDict(attn)
+        self.attn = attn_params(cfg, L, p)
         if not cfg.parallel_block:
             self.ln2 = p(L, d)
-        if cfg.activation == "gelu":
-            self.mlp = nn.ParameterDict({"w_up": p(L, d, ff), "w_down": p(L, ff, d)})
-        else:
-            self.mlp = nn.ParameterDict({"w_gate": p(L, d, ff), "w_up": p(L, d, ff), "w_down": p(L, ff, d)})
+        self.mlp = mlp_params(cfg, L, p)
         if not cfg.tie_embeddings:
             self.out_embed = p(V, d)
         if cfg.pos_emb == "learned":
@@ -120,16 +149,11 @@ class TransformerLM(nn.Module):
         ``std · truncated_normal(-2, 2)``, norms and biases zero, vocab
         padding rows zero. ``generator`` lives on the parameters' device."""
         cfg = self.cfg
-        d, ff, Hhd = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.resolved_head_dim
+        d = cfg.d_model
         init_truncated_normal_(self.embed, d**-0.5, generator)
         self.embed[cfg.vocab:] = 0
-        for name in ("wq", "wk", "wv"):
-            init_truncated_normal_(self.attn[name], d**-0.5, generator)
-        init_truncated_normal_(self.attn["wo"], Hhd**-0.5, generator)
-        for name in ("w_gate", "w_up"):
-            if name in self.mlp:
-                init_truncated_normal_(self.mlp[name], d**-0.5, generator)
-        init_truncated_normal_(self.mlp["w_down"], ff**-0.5, generator)
+        init_attn_(self.attn, cfg, generator)
+        init_mlp_(self.mlp, cfg, generator)
         if not cfg.tie_embeddings:
             init_truncated_normal_(self.out_embed, d**-0.5, generator)
             self.out_embed[cfg.vocab:] = 0

@@ -11,13 +11,18 @@ cache and is decoded with its own ``decode_step`` call at B=1; the
 ``PagedKVCache`` does the page bookkeeping. On a CUDA device, prefill
 attention runs the flash kernel and decode attention the paged-decode
 kernel (over an identity-page view of the contiguous cache); an ssm model's
-prefill runs the SSD chunk kernels.
+prefill runs the SSD chunk kernels, a hybrid model's the RG-LRU kernel.
 
-An attention-free model (``n_heads == n_kv_heads == 0``, e.g. mamba2) runs
-unchanged: its cache is its own recurrent state, and the page arena is
-still allocated, as the reference engine does, with ``n_kv_heads → 1`` and
-``head_dim → d_model // max(n_heads, 1)``. That arena is bookkeeping only
-and is never read.
+Models whose cache is not a per-position K/V cache run unchanged: an
+attention-free model (``n_heads == n_kv_heads == 0``, e.g. mamba2) keeps its
+recurrent state, and a hybrid model (recurrentgemma) keeps conv tails,
+RG-LRU states and ``window``-slot ring K/V buffers. The page arena is still
+allocated for every layer, as the reference engine does, with
+``n_kv_heads → max(n_kv_heads, 1)`` and ``head_dim → resolved_head_dim``
+(``d_model // max(n_heads, 1)`` for mamba2; for recurrentgemma-9b at max
+batch 4 and max_len 2112: 272 pages of 64 positions, K and V, 38 layers,
+one kv head of 256, bf16, 677 MB by its shapes). For these models that
+arena is bookkeeping only and is never read.
 """
 from __future__ import annotations
 

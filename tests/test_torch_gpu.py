@@ -16,6 +16,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import paged_decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import inter_chunk_scan, ssd_chunked_cuda, ssd_output, ssd_states
 from repro_torch.models import attention, build_model
 
@@ -23,7 +24,8 @@ torch.set_num_threads(1)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# the grids of tests/test_kernels.py, plus the serving shapes of qwen3-4b
+# the grids of tests/test_kernels.py, plus the serving shapes of qwen3-4b and
+# the head_dim-256 shapes of recurrentgemma-9b
 FLASH_GRID = [
     (2, 256, 8, 4, 64, True, None),
     (1, 384, 4, 1, 128, True, None),
@@ -32,9 +34,14 @@ FLASH_GRID = [
     (1, 200, 4, 2, 64, True, None),
     (1, 256, 2, 2, 32, True, None),
     (1, 128, 32, 8, 128, True, None),
+    # head_dim 256, recurrentgemma-9b's MQA (16 query heads on 1 kv head):
+    # causal, ragged, and windowed with T > window
+    (1, 256, 16, 1, 256, True, None),
+    (2, 200, 16, 1, 256, True, None),
+    (1, 512, 16, 1, 256, True, 128),
 ]
 PAGED_GRID = [(2, 8, 4, 64, 16, 128, 4), (4, 4, 1, 128, 32, 128, 6), (2, 16, 8, 64, 16, 256, 3),
-              (1, 32, 8, 128, 4, 64, 4)]
+              (1, 32, 8, 128, 4, 64, 4), (2, 16, 1, 256, 16, 64, 6), (1, 16, 1, 256, 32, 64, 32)]
 
 
 def _tol(dtype):
@@ -190,6 +197,101 @@ def test_mamba2_full_width_on_card_matches_cpu(cuda):
     gpu.load_state_dict(cpu.state_dict())
     rng = np.random.default_rng(0)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, 300))).long()
+    with torch.no_grad():
+        lc, cc = cpu.prefill(prompt)
+        lg, cg = gpu.prefill(prompt.to(cuda))
+        steps = [(lc, lg)]
+        for tok in (5, 7):
+            lc, cc = cpu.decode_step(cc, torch.tensor([[tok]]))
+            lg, cg = gpu.decode_step(cg, torch.tensor([[tok]], device=cuda))
+            steps.append((lc, lg))
+    for lc, lg in steps:
+        lg = lg.cpu()
+        assert torch.isfinite(lg).all()
+        np.testing.assert_allclose(lc[:, :cfg.vocab].numpy(), lg[:, :cfg.vocab].numpy(), atol=5e-3, rtol=0)
+        assert int(lc.argmax()) == int(lg.argmax())
+
+
+@pytest.mark.gpu
+def test_decode_over_the_ring_view(cuda):
+    """recurrentgemma-9b's decode: 16 query heads on 1 kv head of 256 over a
+    2048-slot bf16 ring (identity-page view, page 64), at lengths up to the
+    full ring, card (paged-decode kernel) against the CPU body."""
+    rng = np.random.default_rng(4)
+    kc, vc = (_randn(rng, (1, 2048, 1, 256), "bfloat16", "cpu") for _ in range(2))
+    q = _randn(rng, (1, 1, 16, 256), "float32", "cpu")
+    for valid in (1, 100, 2047, 2048):
+        out = attention.decode_attention(q.to(cuda), kc.to(cuda), vc.to(cuda), valid)
+        _close(attention.decode_attention(q, kc, vc, valid), out, "float32")
+
+
+# (B, T, W): tests/test_kernels.py::test_rglru_sweep, a ragged T and W, T
+# under one unrolled group, and the serving shape of recurrentgemma-9b
+RGLRU_GRID = [(2, 128, 256), (1, 256, 512), (1, 300, 200), (3, 5, 7), (1, 2048, 4096)]
+
+
+def _rglru_inputs(rng, B, T, W, dtype, device):
+    x = _randn(rng, (B, T, W), dtype, device)
+    r, i = (torch.from_numpy(rng.uniform(size=(B, T, W)).astype(np.float32)).to(device, DTYPES[dtype])
+            for _ in range(2))
+    lam = torch.from_numpy(rng.uniform(0.5, 4.0, size=(W,)).astype(np.float32)).to(device)
+    return x, r, i, lam
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,T,W", RGLRU_GRID)
+def test_rglru_kernel_matches_plain(cuda, B, T, W, dtype):
+    x, r, i, lam = _rglru_inputs(np.random.default_rng(0), B, T, W, dtype, cuda)
+    y, h = rglru_scan(x, r, i, lam.to(DTYPES[dtype]))
+    y_ref, h_ref = ref.rglru_reference(x, r, i, lam.to(DTYPES[dtype]))
+    torch.cuda.synchronize()
+    assert y.dtype == x.dtype and y.shape == x.shape and h.dtype == torch.float32 and h.shape == (B, W)
+    _close(y_ref, y, dtype)
+    _close(h_ref, h, "float32")  # fp32 on both sides, from the same rounded inputs
+
+
+@pytest.mark.gpu
+def test_rglru_kernel_carries_state_and_reads_views(cuda):
+    """Two calls threading h0 equal one call (tests/test_kernels.py::
+    test_rglru_carried_state); x, r, i as strided views of one tensor."""
+    rng = np.random.default_rng(1)
+    xri = _randn(rng, (1, 128, 3, 128), "float32", cuda)
+    x, r, i = xri[:, :, 0], torch.sigmoid(xri[:, :, 1]), torch.sigmoid(xri[:, :, 2])
+    lam = torch.linspace(0.5, 4.0, 128, device=cuda)
+    y1, h1 = rglru_scan(x[:, :64], r[:, :64], i[:, :64], lam)
+    y2, h2 = rglru_scan(x[:, 64:], r[:, 64:], i[:, 64:], lam, h0=h1)
+    y_ref, h_ref = ref.rglru_reference(x, r, i, lam)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(y_ref.cpu().numpy(), torch.cat([y1, y2], 1).cpu().numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(h_ref.cpu().numpy(), h2.cpu().numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_rglru_kernel_rejects_cpu_tensors_and_strided_width(cuda):
+    rng = np.random.default_rng(2)
+    x, r, i, lam = _rglru_inputs(rng, 1, 8, 16, "float32", "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_scan(x, r, i, lam)
+    x, r, i, lam = (t.to(cuda) for t in (x, r, i, lam))
+    with pytest.raises(ValueError, match="unit stride"):
+        rglru_scan(x.transpose(1, 2), r.transpose(1, 2), i.transpose(1, 2), torch.ones(8, device=cuda))
+
+
+@pytest.mark.gpu
+def test_griffin_full_width_on_card_matches_cpu(cuda):
+    """recurrentgemma-9b at full width, 3 layers (one RRA group), fp32: a
+    40-token prefill and 2 decode steps, card (RG-LRU, flash and paged-decode
+    kernels) against CPU (the plain path). Weights are drawn on the card and
+    copied to the CPU. Both sides are fp32; the logits differ in summation
+    order, and the bf16 caches may round a last-ulp difference to a
+    neighbouring value."""
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), n_layers=3, dtype="float32")
+    gpu = build_model(cfg, cuda).init(torch.Generator(device=cuda).manual_seed(0))
+    cpu = build_model(cfg, "cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, 40))).long()
     with torch.no_grad():
         lc, cc = cpu.prefill(prompt)
         lg, cg = gpu.prefill(prompt.to(cuda))

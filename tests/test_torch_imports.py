@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.convert import flatten, tensor_from_numpy
+from repro_torch.convert import flatten, params_from_jax, tensor_from_numpy
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve
 from repro_torch.models import build_model
@@ -83,3 +83,17 @@ def test_convert_bf16_and_key_paths():
     assert t.dtype == torch.bfloat16 and torch.equal(t, torch.from_numpy(a).bfloat16())
     tree = {"attn": {"wq": 1, "q_norm": 2}, "ln1": 3}
     assert flatten(tree) == {"attn.wq": 1, "attn.q_norm": 2, "ln1": 3}
+
+
+def test_convert_list_trees():
+    """The hybrid family's tree holds lists of per-slot dicts: a list index
+    is a ``ModuleList`` index in the ``state_dict`` key, and
+    ``params_from_jax`` keeps the lists."""
+    a, b = np.ones((1, 2), np.float32), np.zeros((1, 3), np.float32)
+    tree = {"slots": [{"mix": {"w_in": a}}, {"ln1": b}], "rem": [], "ln_f": b[0]}
+    converted = params_from_jax(tree)
+    assert isinstance(converted["slots"], list) and converted["rem"] == []
+    flat = flatten(converted)
+    assert list(flat) == ["slots.0.mix.w_in", "slots.1.ln1", "ln_f"]
+    assert torch.equal(flat["slots.0.mix.w_in"], torch.ones(1, 2))
+    assert flatten(tree)["slots.1.ln1"] is b

@@ -176,3 +176,30 @@ def test_engine_tokens_equal_reference_engine_mamba2():
     done = {r.req_id: r.tokens for r in engine.run_until_drained()}
     assert done == ref_done and all(len(t) == 6 for t in done.values())
     assert (engine.prefill_calls, engine.decode_calls) == (3, 15)
+
+
+def test_engine_tokens_equal_reference_engine_recurrentgemma():
+    """The hybrid model through the unchanged engine: the reduced
+    recurrentgemma-9b with its RR remainder (5 layers), prompts of 40 and 50
+    tokens (beyond the window of 32, so prefill keeps the last 32 positions
+    in the ring and decode overwrites its slots), fp32: the greedy tokens are
+    identical."""
+    kw = dict(dtype="float32", n_layers=5)
+    rcfg, cfg = ref_get_config("recurrentgemma-9b").reduced(**kw), get_config("recurrentgemma-9b").reduced(**kw)
+    ref_model = ref_build_model(rcfg)
+    params = ref_model.init(jax.random.key(3))
+    model = build_model(cfg, "cpu")
+    model.load_state_dict(flatten(params_from_jax(jax.tree.map(np.asarray, params))))
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in (40, 50)]
+    ref_engine = RefServingEngine(rcfg, params, max_batch=2, max_len=64, page_size=16)
+    engine = ServingEngine(model, max_batch=2, max_len=64, page_size=16)
+    # the unused arena, sized as the reference's: 1 kv head of head_dim 16
+    assert engine.kv.pages_k[0].shape == (2 * (64 // 16 + 1) * 2, 16, 1, cfg.resolved_head_dim)
+    for rid, p in enumerate(prompts):
+        ref_engine.submit(RefRequest(rid, p, max_new_tokens=6))
+        engine.submit(Request(rid, p, max_new_tokens=6))
+    ref_done = {r.req_id: r.tokens for r in ref_engine.run_until_drained()}
+    done = {r.req_id: r.tokens for r in engine.run_until_drained()}
+    assert done == ref_done and all(len(t) == 6 for t in done.values())
+    assert (engine.prefill_calls, engine.decode_calls) == (2, 10)
