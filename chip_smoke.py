@@ -7,9 +7,14 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
 
 1. device: the card's name, count, and power limit;
 2. build: every CUDA kernel from src/repro_torch/csrc with nvcc for sm_90a
-   (one nvcc per source, all started together);
+   (one nvcc per source, all started together), registers and spills per
+   instantiation, shared memory per block, and the tensor-core (HMMA)
+   instructions in the bf16 flash kernel's SASS, which must be there;
 3. each kernel against its plain PyTorch version on the card, over the
-   tests/test_kernels.py grids in fp32 and bf16 and at the serving shapes of
+   tests/test_kernels.py grids in fp32 and bf16, the attention kernels' edges
+   (paged decode's per-split partials at every split boundary, flash in bf16
+   at every head_dim with ragged T, windows under a tile and strided views,
+   a CUDA-graph replay of each), and at the serving shapes of
    qwen3-4b (attention, head_dim 128), recurrentgemma-9b (attention at
    head_dim 256, RG-LRU) and mamba2-1.3b (SSD), with times of kernel, plain
    version and the PyTorch library call where one exists (a yardstick only:
@@ -35,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -50,7 +56,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, decode_attention, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_module  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
-from repro_torch.kernels.decode_attention import paged_decode_attention  # noqa: E402
+from repro_torch.kernels.decode_attention import paged_decode_attention, paged_decode_partials  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import inter_chunk_scan, ssd_chunked_cuda, ssd_output, ssd_states  # noqa: E402
@@ -190,12 +196,25 @@ def phase_build() -> None:
         print(f"  {rep.name}: {rep.seconds:.1f} s -> {rep.path.name}")
         for line in rep.resources():
             print(f"    {line}")
+    if not any("spill" in line for rep in reports.values() for line in rep.resources()):
+        print("    no kernel spills registers")
+    # the bf16 flash kernel's products must run on the tensor cores
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(reports["flash_attention"].path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    n_hmma, n_hgmma = sass.count("HMMA"), sass.count("HGMMA")
+    print(f"  flash_attention SASS: {n_hmma} HMMA, {n_hgmma} HGMMA instructions")
+    if n_hmma + n_hgmma == 0:
+        raise AssertionError("flash_attention: no tensor-core instruction in the SASS")
     hds = (16, 32, 64, 128, 256)
-    print("  dynamic shared memory per block: flash_attention "
+    print("  dynamic shared memory per block: flash_attention bf16 (tensor cores) "
           + ", ".join(f"hd {hd}: {flash_module.shared_memory_bytes(hd)} B" for hd in hds)
-          + "; paged_decode at G=4 "
+          + "; fp32 (CUDA cores) "
+          + ", ".join(f"hd {hd}: {flash_module.shared_memory_bytes(hd, torch.float32)} B" for hd in hds))
+    print("  paged_decode partial kernel, bf16 pages of 64, 16-token splits: G=4 "
           + ", ".join(f"hd {hd}: {decode_attention.shared_memory_bytes(hd, 4)} B" for hd in hds)
-          + f"; paged_decode at hd 256, G=16 (recurrentgemma-9b): {decode_attention.shared_memory_bytes(256, 16)} B")
+          + f"; hd 256, G=16 (recurrentgemma-9b): {decode_attention.shared_memory_bytes(256, 16)} B"
+          + f"; hd 256, G=64, fp32 pages: {decode_attention.shared_memory_bytes(256, 64, torch.float32)} B")
     print("  ssd_states, ssd_output at p 64, n 128: %s B; at p 128, n 256: %s B"
           % (ssd_scan.shared_memory_bytes(64, 128), ssd_scan.shared_memory_bytes(128, 256)))
 
@@ -218,6 +237,8 @@ def phase_kernels() -> dict:
             check(f"paged {B},{H},{K},{hd},{P},{page},{maxp} {dtype}",
                   paged_decode_attention(q, pk, pv, pt, lens),
                   ref.paged_decode_reference(q, pk, pv, pt, lens), TOL[dtype])
+
+    phase_attention_edges(rng)
 
     dt, es = torch.bfloat16, 2
     results = {}
@@ -270,6 +291,94 @@ def phase_kernels() -> dict:
     results.update(phase_ssd_kernels(rng))
     results.update(phase_rglru_kernel(rng))
     return results
+
+
+# paged decode's partials at their edges: (B, H, K, hd, P, page, maxp, split
+# tokens, identity page table): recurrentgemma-9b's ring view, B 3 x K 2 over a
+# random page table, G 64
+PAGED_EDGES = [(1, 16, 1, 256, 32, 64, 32, 16, True), (3, 8, 2, 64, 20, 16, 6, 32, False),
+               (2, 64, 1, 128, 8, 16, 4, 16, False)]
+
+
+def graph_replay_matches(name, fn) -> None:
+    """One CUDA-graph capture of ``fn`` and two replays give its eager result
+    bit for bit (the kernels are deterministic; workspaces come from the
+    graph's pool)."""
+    first = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(out, first):
+        raise AssertionError(f"{name}: CUDA-graph replay differs from the eager call")
+    print(f"  {name}: CUDA-graph replay equals the eager call ok")
+
+
+def phase_attention_edges(rng) -> None:
+    """The redesigned attention kernels at their edges. Paged decode: the
+    partial kernel's (m, l, acc) against their plain version, so that a fault
+    in the partials is told apart from one in the combine, and the combined
+    output against the plain decode, at lengths 0, 1, 15, 16, 17, every split
+    boundary (and one past it) and the capacity. Flash in bf16 (tensor cores)
+    at every head_dim: T not a multiple of 16 or 64, non-causal, a window under
+    one tile, q/k/v as strided views of one tensor. Then a CUDA-graph replay
+    of each wrapper."""
+    f32 = TOL[torch.float32]  # the partials are fp32 on both sides, from the same inputs
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, K, hd, P, page, maxp, split_len, identity in PAGED_EDGES:
+            q = randn(rng, (B, H, hd), dtype)
+            pk, pv = randn(rng, (P, page, K, hd), dtype), randn(rng, (P, page, K, hd), dtype)
+            if identity:
+                pt = torch.arange(B * maxp, dtype=torch.int32, device="cuda").view(B, maxp)
+            else:
+                pt = torch.from_numpy(rng.integers(0, P, size=(B, maxp)).astype(np.int32)).cuda()
+            cap = maxp * page
+            edges = sorted({0, 1, 15, 16, 17, cap} | {min(e, cap) for s in range(1, -(-cap // split_len) + 1)
+                                                       for e in (s * split_len, s * split_len + 1)})
+            errs = [0.0] * 4
+            for length in edges:
+                lens = torch.tensor([(length + i * 7) % (cap + 1) for i in range(B)], dtype=torch.int32, device="cuda")
+                m, l, acc, out = paged_decode_partials(q, pk, pv, pt, lens, split_len)
+                mr, lr, ar = ref.paged_decode_partials_reference(q, pk, pv, pt, lens, split_len)
+                expect = ref.paged_decode_reference(q, pk, pv, pt, lens)
+                for i, (name, x, y, tol) in enumerate((("m", m, mr, f32), ("l", l, lr, f32), ("acc", acc, ar, f32),
+                                                        ("out", out, expect, TOL[dtype]))):
+                    torch.cuda.synchronize()
+                    d = (x.float() - y.float()).abs()
+                    if x.shape != y.shape or not bool((d <= tol[0] + tol[1] * y.float().abs()).all()):
+                        raise AssertionError(f"paged partials {name} at lengths {lens.tolist()}: "
+                                             f"max|d|={d.max().item() if d.numel() else 0}")
+                    errs[i] = max(errs[i], d.max().item() if d.numel() else 0.0)
+            print(f"  paged partials {B},{H},{K},{hd},{P},{page},{maxp} split {split_len} {dtype}, "
+                  f"{len(edges)} length sets: max|d| m {errs[0]:.2e} l {errs[1]:.2e} acc {errs[2]:.2e} "
+                  f"out {errs[3]:.2e} ok")
+    dt = torch.bfloat16
+    for hd in (16, 32, 64, 128, 256):
+        for B, T, H, K, causal, window in ((1, 77, 4, 2, True, None), (2, 50, 4, 4, False, None),
+                                           (1, 100, 4, 1, True, 5), (1, 130, 8, 2, False, 9)):
+            q = randn(rng, (B, T, H, hd), dt)
+            k, v = randn(rng, (B, T, K, hd), dt), randn(rng, (B, T, K, hd), dt)
+            check(f"flash bf16 {B},{T},{H},{K},{hd} causal={causal} window={window}",
+                  flash_attention(q, k, v, causal=causal, window=window),
+                  ref.mha_reference(q, k, v, causal=causal, window=window), TOL[dt])
+        qkv = randn(rng, (2, 70, 12, hd), dt)
+        q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+        check(f"flash bf16 strided views of one (2,70,12,{hd}) tensor", flash_attention(q, k, v),
+              ref.mha_reference(q, k, v), TOL[dt])
+    q, k, v = (randn(rng, (1, 300, 16, 256), dt), randn(rng, (1, 300, 1, 256), dt), randn(rng, (1, 300, 1, 256), dt))
+    graph_replay_matches("flash_attention", lambda: flash_attention(q, k, v, window=128))
+    qd = randn(rng, (2, 16, 256), dt)
+    pk, pv = randn(rng, (16, 64, 1, 256), dt), randn(rng, (16, 64, 1, 256), dt)
+    pt = torch.from_numpy(rng.integers(0, 16, size=(2, 8)).astype(np.int32)).cuda()
+    lens = torch.tensor([0, 300], dtype=torch.int32, device="cuda")
+    graph_replay_matches("paged_decode_attention", lambda: paged_decode_attention(qd, pk, pv, pt, lens))
 
 
 def phase_hd256_kernels(rng) -> dict:

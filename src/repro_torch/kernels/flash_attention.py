@@ -1,8 +1,9 @@
 """Wrapper around the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
 
-Replaces ``repro/kernels/flash_attention.py::flash_attention``. q/k/v are read
-in place through their strides, so no pad, fold or transpose happens on the
-host. CUDA tensors only: :func:`repro_torch.kernels.ops.attention` sends CPU
+Replaces ``repro/kernels/flash_attention.py::flash_attention``. bf16 inputs
+run on the tensor cores (``mma.sync``, fp32 accumulation, P rounded to bf16
+before P·V); fp32 inputs on CUDA cores in fp32. q/k/v are read in place
+through their strides, so no pad, fold or transpose happens on the host. CUDA tensors only: :func:`repro_torch.kernels.ops.attention` sends CPU
 tensors to the plain version.
 """
 from __future__ import annotations
@@ -34,17 +35,20 @@ def _entry():
     return _fn
 
 
-def shared_memory_bytes(hd: int) -> int:
-    """Dynamic shared memory of one block of the kernel at head_dim ``hd``."""
+def shared_memory_bytes(hd: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of one block of the kernel for ``dtype`` inputs
+    at head_dim ``hd``."""
     fn = _build.library("flash_attention").flash_attention_smem_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    return fn(hd)
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return fn(hd, _DTYPES[dtype])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None) -> torch.Tensor:
     """q (B,T,H,hd), k/v (B,S,K,hd) on one CUDA device, fp32 or bf16 →
-    (B,T,H,hd) in q's dtype, with ``sm_scale = 1/sqrt(hd)``."""
+    (B,T,H,hd) in q's dtype, with ``sm_scale = 1/sqrt(hd)``. In bf16 each
+    row of q/k/v must start on 16 bytes (the kernel copies rows in 16-byte
+    pieces)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention takes CUDA tensors on one device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -60,6 +64,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention needs a unit stride along head_dim")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(st % 8 for st, n in zip(t.stride()[:3], t.shape) if n > 1)
+            for t in (q, k, v)):
+        raise ValueError("bf16 flash_attention needs q/k/v rows on 16 bytes (strides and data pointers)")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     fn, err = _entry()

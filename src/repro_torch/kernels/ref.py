@@ -10,8 +10,10 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
-def mha_reference(q, k, v, *, causal=True, window=None):
-    """q (B,T,H,hd); k/v (B,S,K,hd) — exact softmax attention in fp32."""
+def mha_reference(q, k, v, *, causal=True, window=None, p_dtype=None):
+    """q (B,T,H,hd); k/v (B,S,K,hd) — exact softmax attention in fp32.
+    ``p_dtype`` (e.g. bf16) rounds the probabilities to that type before
+    P·V, as the tensor-core flash kernel does; None keeps them in fp32."""
     B, T, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
     G = H // K
@@ -26,6 +28,8 @@ def mha_reference(q, k, v, *, causal=True, window=None):
         mask &= q_pos - k_pos < window
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
+    if p_dtype is not None:
+        p = p.to(p_dtype).float()
     o = torch.einsum("bkgts,bskd->btkgd", p, v.float())
     return o.reshape(B, T, H, hd).to(q.dtype)
 
@@ -50,6 +54,48 @@ def paged_decode_reference(q, pages_k, pages_v, page_table, lengths):
     p = torch.where(valid[:, None, None], torch.softmax(s, dim=-1), 0.0)
     o = torch.einsum("bkgs,bskd->bkgd", p, vg.float())
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def paged_decode_partials_reference(q, pages_k, pages_v, page_table, lengths, split_len: int):
+    """Plain version of the split kernel of paged decode. The capacity
+    ``maxp·page`` is cut into splits of ``split_len`` positions; per
+    (sequence, kv head, split) and query row: m = the split's largest valid
+    scaled score, l = Σ exp(s − m), acc = Σ exp(s − m)·v, all fp32. A split
+    with no valid position gives m = −1e30, l = 0, acc = 0. Returns m, l
+    (B,K,splits,G) and acc (B,K,splits,G,hd)."""
+    B, H, hd = q.shape
+    P, page, K, _ = pages_k.shape
+    maxp = page_table.shape[1]
+    G = H // K
+    cap = maxp * page
+    splits = max(1, -(-cap // split_len))
+    pad = splits * split_len - cap
+    idx = page_table.long()
+    kg = F.pad(pages_k[idx].reshape(B, cap, K, hd).float(), (0, 0, 0, 0, 0, pad))
+    vg = F.pad(pages_v[idx].reshape(B, cap, K, hd).float(), (0, 0, 0, 0, 0, pad))
+    kg = kg.reshape(B, splits, split_len, K, hd)
+    vg = vg.reshape(B, splits, split_len, K, hd)
+    qg = q.reshape(B, K, G, hd).float() / math.sqrt(hd)
+    s = torch.einsum("bkgd,bcjkd->bkcgj", qg, kg)  # (B,K,splits,G,split_len)
+    pos = torch.arange(splits * split_len, device=q.device).reshape(splits, split_len)
+    valid = (pos[None] < lengths.long().clamp(max=cap)[:, None, None])[:, None, :, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    acc = torch.einsum("bkcgj,bcjkd->bkcgd", p, vg)
+    return m, p.sum(dim=-1), acc
+
+
+def combine_partials_reference(m, l, acc, dtype):
+    """Plain version of the combine kernel: o = Σ_s w_s·acc_s / Σ_s w_s·l_s
+    with w_s = exp(m_s − max m), zeros where the total l is 0. m, l
+    (B,K,splits,G), acc (B,K,splits,G,hd) → (B, K·G, hd) in ``dtype``."""
+    B, K, _, G, hd = acc.shape
+    w = torch.exp(m - m.amax(dim=2, keepdim=True))
+    total = (w * l).sum(dim=2)
+    o = (w[..., None] * acc).sum(dim=2)
+    o = torch.where(total[..., None] == 0, 0.0, o / torch.where(total == 0, 1.0, total)[..., None])
+    return o.reshape(B, K * G, hd).to(dtype)
 
 
 def ssd_chunk_reference(x, dA, B_, C_):

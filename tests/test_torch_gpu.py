@@ -14,7 +14,7 @@ import dataclasses
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import paged_decode_attention
+from repro_torch.kernels.decode_attention import paged_decode_attention, paged_decode_partials
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import inter_chunk_scan, ssd_chunked_cuda, ssd_output, ssd_states
@@ -305,3 +305,98 @@ def test_griffin_full_width_on_card_matches_cpu(cuda):
         assert torch.isfinite(lg).all()
         np.testing.assert_allclose(lc[:, :cfg.vocab].numpy(), lg[:, :cfg.vocab].numpy(), atol=5e-3, rtol=0)
         assert int(lc.argmax()) == int(lg.argmax())
+
+
+# the redesigned attention kernels at their edges.
+# paged decode: (B, H, K, hd, P, page, maxp, split tokens, identity page
+# table): recurrentgemma-9b's ring view, B 3 x K 2 over a random page table, G 64
+PAGED_EDGES = [(1, 16, 1, 256, 32, 64, 32, 16, True), (3, 8, 2, 64, 20, 16, 6, 32, False),
+               (2, 64, 1, 128, 8, 16, 4, 16, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,H,K,hd,P,page,maxp,split_len,identity", PAGED_EDGES)
+def test_paged_partials_match_plain(cuda, B, H, K, hd, P, page, maxp, split_len, identity, dtype):
+    """The partial kernel's (m, l, acc) against their plain version, so that a
+    fault in the partials is told apart from one in the combine, and the
+    combined output against the plain decode, at lengths 0, 1, 15, 16, 17,
+    every split boundary (and one past it) and the capacity."""
+    rng = np.random.default_rng(5)
+    q = _randn(rng, (B, H, hd), dtype, cuda)
+    pk, pv = (_randn(rng, (P, page, K, hd), dtype, cuda) for _ in range(2))
+    if identity:
+        pt = torch.arange(B * maxp, dtype=torch.int32, device=cuda).view(B, maxp)
+    else:
+        pt = torch.from_numpy(rng.integers(0, P, size=(B, maxp)).astype(np.int32)).to(cuda)
+    cap = maxp * page
+    edges = {0, 1, 15, 16, 17, cap} | {min(e, cap) for s in range(1, -(-cap // split_len) + 1)
+                                       for e in (s * split_len, s * split_len + 1)}
+    for length in sorted(edges):
+        lengths = torch.tensor([(length + i * 7) % (cap + 1) for i in range(B)], dtype=torch.int32, device=cuda)
+        m, l, acc, out = paged_decode_partials(q, pk, pv, pt, lengths, split_len)
+        mr, lr, ar = ref.paged_decode_partials_reference(q, pk, pv, pt, lengths, split_len)
+        torch.cuda.synchronize()
+        for expect, got in ((mr, m), (lr, l), (ar, acc)):  # fp32 on both sides, from the same inputs
+            assert got.shape == expect.shape
+            _close(expect, got, "float32")
+        _close(ref.paged_decode_reference(q, pk, pv, pt, lengths), out, dtype)
+        assert (out[lengths == 0] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("B,T,H,K,causal,window", [
+    (1, 77, 4, 2, True, None),    # T not a multiple of 16 or 64
+    (2, 50, 4, 4, False, None),   # non-causal
+    (1, 100, 4, 1, True, 5),      # a window under one tile
+    (1, 130, 8, 2, False, 9),     # non-causal with a window
+])
+def test_flash_bf16_tensor_core_edges(cuda, hd, B, T, H, K, causal, window):
+    rng = np.random.default_rng(6)
+    q = _randn(rng, (B, T, H, hd), "bfloat16", cuda)
+    k, v = (_randn(rng, (B, T, K, hd), "bfloat16", cuda) for _ in range(2))
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    _close(ref.mha_reference(q, k, v, causal=causal, window=window), out, "bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+def test_flash_bf16_reads_strided_views(cuda, hd):
+    qkv = _randn(np.random.default_rng(7), (2, 70, 12, hd), "bfloat16", cuda)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    _close(ref.mha_reference(q, k, v), flash_attention(q, k, v), "bfloat16")
+
+
+def _graph_replay(fn):
+    first = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    return first, out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_attention_wrappers_replay_in_cuda_graph(cuda, dtype):
+    """One capture and two replays of each wrapper give its eager result bit
+    for bit: paged decode's workspaces come from the graph's pool."""
+    rng = np.random.default_rng(8)
+    q, k, v = (_randn(rng, (1, 300, h, 256), dtype, cuda) for h in (16, 1, 1))
+    first, out = _graph_replay(lambda: flash_attention(q, k, v, window=128))
+    assert torch.equal(first, out)
+    qd = _randn(rng, (2, 16, 256), dtype, cuda)
+    pk, pv = (_randn(rng, (16, 64, 1, 256), dtype, cuda) for _ in range(2))
+    pt = torch.from_numpy(rng.integers(0, 16, size=(2, 8)).astype(np.int32)).to(cuda)
+    lengths = torch.tensor([0, 300], dtype=torch.int32, device=cuda)
+    first, out = _graph_replay(lambda: paged_decode_attention(qd, pk, pv, pt, lengths))
+    assert torch.equal(first, out) and (out[0] == 0).all()
