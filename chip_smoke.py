@@ -9,12 +9,14 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
 2. build: every CUDA kernel from src/repro_torch/csrc with nvcc for sm_90a
    (one nvcc per source, all started together), registers and spills per
    instantiation, shared memory per block, and the tensor-core (HMMA)
-   instructions in the bf16 flash kernel's SASS, which must be there;
+   instructions in the SASS of the bf16 flash and SSD kernels, which must be
+   there;
 3. each kernel against its plain PyTorch version on the card, over the
    tests/test_kernels.py grids in fp32 and bf16, the attention kernels' edges
    (paged decode's per-split partials at every split boundary, flash in bf16
    at every head_dim with ragged T, windows under a tile and strided views,
-   a CUDA-graph replay of each), and at the serving shapes of
+   a CUDA-graph replay of each), the bf16 SSD kernels' tile edges and a
+   CUDA-graph replay of the chunked SSD, and at the serving shapes of
    qwen3-4b (attention, head_dim 128), recurrentgemma-9b (attention at
    head_dim 256, RG-LRU) and mamba2-1.3b (SSD), with times of kernel, plain
    version and the PyTorch library call where one exists (a yardstick only:
@@ -82,6 +84,10 @@ PAGED_GRID = [(2, 8, 4, 64, 16, 128, 4), (4, 4, 1, 128, 32, 128, 6), (2, 16, 8, 
 SSD_GRID = [(1, 128, 4, 32, 64, 32), (2, 256, 2, 64, 128, 64), (1, 64, 8, 16, 32, 64),
             (1, 300, 2, 64, 128, 100)]
 SSD_SERVING = (1, 1024, 64, 64, 128, 256)
+# the bf16 tensor-core kernels' tile edges: t not a multiple of 16 or 64,
+# chunks of 45 and 100, n of 16, 24 and 256, p of 16 and 128
+SSD_EDGES = [(1, 77, 2, 16, 16, 32), (1, 45, 3, 64, 128, 45), (1, 333, 2, 128, 24, 64),
+             (1, 260, 2, 128, 256, 100)]
 # (B, T, W): tests/test_kernels.py::test_rglru_sweep, then a ragged T and W
 RGLRU_GRID = [(2, 128, 256), (1, 256, 512), (1, 300, 200)]
 RGLRU_SERVING = (1, 2048, 4096)  # recurrentgemma-9b, prompt 2048
@@ -198,14 +204,15 @@ def phase_build() -> None:
             print(f"    {line}")
     if not any("spill" in line for rep in reports.values() for line in rep.resources()):
         print("    no kernel spills registers")
-    # the bf16 flash kernel's products must run on the tensor cores
+    # the bf16 flash and SSD kernels' products must run on the tensor cores
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(reports["flash_attention"].path)], capture_output=True, text=True,
-                          timeout=120, check=True).stdout
-    n_hmma, n_hgmma = sass.count("HMMA"), sass.count("HGMMA")
-    print(f"  flash_attention SASS: {n_hmma} HMMA, {n_hgmma} HGMMA instructions")
-    if n_hmma + n_hgmma == 0:
-        raise AssertionError("flash_attention: no tensor-core instruction in the SASS")
+    for lib in ("flash_attention", "ssd_scan"):
+        sass = subprocess.run([tool, "-sass", str(reports[lib].path)], capture_output=True, text=True,
+                              timeout=120, check=True).stdout
+        n_hmma, n_hgmma = sass.count("HMMA"), sass.count("HGMMA")
+        print(f"  {lib} SASS: {n_hmma} HMMA, {n_hgmma} HGMMA instructions")
+        if n_hmma + n_hgmma == 0:
+            raise AssertionError(f"{lib}: no tensor-core instruction in the SASS")
     hds = (16, 32, 64, 128, 256)
     print("  dynamic shared memory per block: flash_attention bf16 (tensor cores) "
           + ", ".join(f"hd {hd}: {flash_module.shared_memory_bytes(hd)} B" for hd in hds)
@@ -215,8 +222,10 @@ def phase_build() -> None:
           + ", ".join(f"hd {hd}: {decode_attention.shared_memory_bytes(hd, 4)} B" for hd in hds)
           + f"; hd 256, G=16 (recurrentgemma-9b): {decode_attention.shared_memory_bytes(256, 16)} B"
           + f"; hd 256, G=64, fp32 pages: {decode_attention.shared_memory_bytes(256, 64, torch.float32)} B")
-    print("  ssd_states, ssd_output at p 64, n 128: %s B; at p 128, n 256: %s B"
-          % (ssd_scan.shared_memory_bytes(64, 128), ssd_scan.shared_memory_bytes(128, 256)))
+    for dtype, kind in ((torch.bfloat16, "bf16 (tensor cores)"), (torch.float32, "fp32 (CUDA cores)")):
+        print(f"  ssd_states, ssd_output {kind}: "
+              + "; ".join(f"p {p}, n {n}: %s B" % (ssd_scan.shared_memory_bytes(p, n, dtype),)
+                          for p, n in ((64, 128), (128, 256), (16, 16))))
 
 
 def phase_kernels() -> dict:
@@ -512,8 +521,13 @@ def check_ssd(name, x, dA, B_, C_, chunk) -> tuple[float, float]:
 
 def phase_ssd_kernels(rng) -> dict:
     cases = [(dtype, case) for dtype in (torch.float32, torch.bfloat16) for case in SSD_GRID]
-    for dtype, (b, t, h, p, n, chunk) in cases + [(torch.float32, SSD_SERVING)]:
+    cases += [(torch.bfloat16, case) for case in SSD_EDGES] + [(torch.float32, SSD_SERVING)]
+    for dtype, (b, t, h, p, n, chunk) in cases:
         check_ssd(f"{b},{t},{h},{p},{n},{chunk} {dtype}", *ssd_inputs(rng, b, t, h, p, n, dtype), chunk)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dA, B_, C_ = ssd_inputs(rng, 1, 300, 4, 64, 128, dtype)
+        graph_replay_matches(f"ssd_chunked_cuda {dtype}",
+                             lambda: torch.cat([a.float().flatten() for a in ssd_chunked_cuda(x, dA, B_, C_, 256)]))
     # the serving shape of mamba2-1.3b in bf16, checked and timed
     dt, es = torch.bfloat16, 2
     b, t, h, p, n, cs = SSD_SERVING
@@ -523,7 +537,8 @@ def phase_ssd_kernels(rng) -> dict:
     results = {}
     tri = cs * (cs + 1) // 2  # causal (i, j) pairs of a chunk
     nbytes = x.numel() * es + dA.numel() * 4 + 2 * B_.numel() * es + 4 * b * nc * h * (cs * p + p * n)
-    # C·Bᵀ once per (batch, chunk): it does not depend on the head when g = 1
+    # C·Bᵀ once per (batch, chunk): it does not depend on the head when g = 1;
+    # at the bf16 rate, the type the kernel multiplies in
     flops = b * nc * (2 * tri * n + h * (2 * tri * p + 2 * cs * p * n))
     bound_ms, by = bound(nbytes, flops, dt)
     print(f"  ssd_states serving shape, ms per call (no library call computes it), "
@@ -534,7 +549,7 @@ def phase_ssd_kernels(rng) -> dict:
     H_in, _ = inter_chunk_scan(S, dA, cs)
     nbytes = 4 * (y_diag.numel() + dA.numel() + H_in.numel()) + C_.numel() * es + x.numel() * es
     flops = 2 * b * nc * h * cs * p * n
-    bound_ms, by = bound(nbytes, flops, torch.float32)  # H_in is an fp32 operand
+    bound_ms, by = bound(nbytes, flops, dt)  # the bf16 kernel multiplies bf16 terms of H_in
     print(f"  ssd_output serving shape, ms per call (no library call computes it), "
           f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
     t_ = timings(lambda: ssd_output(y_diag, dA, C_, H_in, dt), lambda: ref.ssd_output_reference(y_diag, dA, C_, H_in, dt))

@@ -144,6 +144,16 @@ def ssd_states_reference(x, dA, B_, C_, chunk: int):
     return y_diag, S
 
 
+def bf16x3(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 SSD kernels' three-term split of an fp32 tensor: hi, mid and
+    lo are bf16 values (returned in fp32), each rounded to nearest from what
+    the terms before it leave, and hi + mid + lo == v. A fp32 operand enters
+    the tensor cores as these three terms, so nothing is rounded."""
+    hi = v.to(torch.bfloat16).float()
+    mid = (v - hi).to(torch.bfloat16).float()
+    return hi, mid, (v - hi - mid).to(torch.bfloat16).float()
+
+
 def ssd_output_reference(y_diag, dA, C_, H_in, dtype: torch.dtype):
     """Plain version of the ``ssd_output`` kernel (g = 1):
     ``y = y_diag + (C ⊙ exp(cum))·H_inᵀ`` per (batch, chunk, head), in fp32,

@@ -4,9 +4,12 @@ Replaces ``repro/kernels/ssd_scan.py::ssd_chunked_pallas``: :func:`ssd_states`
 is its ``_states_kernel``, :func:`ssd_output` its ``_output_kernel``, and
 :func:`ssd_chunked_cuda` runs both around the inter-chunk recurrence, which
 stays in PyTorch (nc steps of an elementwise update, as the reference keeps
-it in a host ``lax.scan``). Inputs are read in place through their strides; a
-ragged last chunk is masked inside the kernels as identity steps, so nothing
-is padded on the host. CUDA tensors only, ``g == 1`` only (as the TPU kernel):
+it in a host ``lax.scan``). bf16 inputs run on the tensor cores (``mma.sync``,
+fp32 accumulation; every fp32 operand enters as three bf16 terms that sum to
+it, so nothing is rounded beyond the bf16 inputs); fp32 inputs on CUDA cores
+in fp32. Inputs are read in place through their strides; a ragged last chunk
+is masked inside the kernels as identity steps, so nothing is padded on the
+host. CUDA tensors only, ``g == 1`` only (as the TPU kernel):
 :func:`repro_torch.kernels.ops.ssd_scan` sends CPU tensors to the plain
 version.
 """
@@ -44,14 +47,14 @@ def _entry():
     return _fns
 
 
-def shared_memory_bytes(p: int, n: int) -> tuple[int, int]:
-    """Dynamic shared memory of one block of (ssd_states, ssd_output) at
-    head_dim ``p`` and state ``n``."""
+def shared_memory_bytes(p: int, n: int, dtype: torch.dtype = torch.bfloat16) -> tuple[int, int]:
+    """Dynamic shared memory of one block of (ssd_states, ssd_output) for
+    ``dtype`` inputs at head_dim ``p`` and state ``n``."""
     lib = _build.library("ssd_scan")
     out = []
     for fn in (lib.ssd_states_smem_bytes, lib.ssd_output_smem_bytes):
-        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-        out.append(fn(p, n))
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+        out.append(fn(p, n, _DTYPES[dtype]))
     return out[0], out[1]
 
 
@@ -73,13 +76,26 @@ def _check_chunk(chunk, p, n):
         raise ValueError(f"head_dim {p} not in {HEAD_DIMS} or state {n} outside [1, {MAX_STATE}]")
 
 
+def _check_rows_aligned(dtype, **tensors):
+    """bf16 tiles are copied in 16-byte pieces: each row (every dimension but
+    the last) must start on 16 bytes."""
+    if dtype != torch.bfloat16:
+        return
+    for name, t in tensors.items():
+        per16 = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(st % per16 for st, n in zip(t.stride()[:-1], t.shape) if n > 1):
+            raise ValueError(f"bf16 SSD kernels need the rows of {name} on 16 bytes "
+                             f"(strides {t.stride()}, data pointer % 16 = {t.data_ptr() % 16})")
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def ssd_states(x: torch.Tensor, dA: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor, chunk: int):
     """x (b,t,h,p) fp32 or bf16; dA (b,t,h) fp32; B_/C_ (b,t,1,n) in x's
-    dtype → (y_diag (b,nc,h,cs,p), S (b,nc,h,p,n)), both fp32, nc = ⌈t/cs⌉."""
+    dtype → (y_diag (b,nc,h,cs,p), S (b,nc,h,p,n)), both fp32, nc = ⌈t/cs⌉.
+    In bf16 each row of x, B_ and C_ must start on 16 bytes."""
     if not x.is_cuda:
         raise ValueError("ssd_states takes CUDA tensors")
     if x.ndim != 4 or x.dtype not in _DTYPES or x.stride(3) != 1:
@@ -94,6 +110,7 @@ def ssd_states(x: torch.Tensor, dA: torch.Tensor, B_: torch.Tensor, C_: torch.Te
         raise ValueError(f"dA must be (b,t,h) fp32 on {x.device}, got {tuple(dA.shape)} {dA.dtype}")
     n = B_.shape[3]
     _check_chunk(chunk, p, n)
+    _check_rows_aligned(x.dtype, x=x, B_=B_[:, :, 0], C_=C_[:, :, 0])
     nc = -(-T // chunk)
     y_diag = torch.empty((b, nc, h, chunk, p), dtype=torch.float32, device=x.device)
     S = torch.empty((b, nc, h, p, n), dtype=torch.float32, device=x.device)
@@ -111,7 +128,8 @@ def ssd_output(y_diag: torch.Tensor, dA: torch.Tensor, C_: torch.Tensor, H_in: t
                dtype: torch.dtype) -> torch.Tensor:
     """y_diag (b,nc,h,cs,p) fp32; dA (b,t,h) fp32; C_ (b,t,1,n); H_in
     (b,nc,h,p,n) fp32, the state entering each chunk → y (b,t,h,p) in
-    ``dtype`` (which is also C_'s)."""
+    ``dtype`` (which is also C_'s). In bf16 each row of C_, y_diag and H_in
+    must start on 16 bytes."""
     if not y_diag.is_cuda:
         raise ValueError("ssd_output takes CUDA tensors")
     if y_diag.ndim != 5 or y_diag.dtype != torch.float32 or not y_diag.is_contiguous():
@@ -130,6 +148,7 @@ def ssd_output(y_diag: torch.Tensor, dA: torch.Tensor, C_: torch.Tensor, H_in: t
             or H_in.device != y_diag.device:
         raise ValueError(f"H_in must be contiguous fp32 {(b, nc, h, p, n)}, got {tuple(H_in.shape)}")
     _check_chunk(cs, p, n)
+    _check_rows_aligned(dtype, C_=C_[:, :, 0], y_diag=y_diag, H_in=H_in.flatten(-2))
     y = torch.empty((b, T, h, p), dtype=dtype, device=y_diag.device)
     _, fn, err = _entry()
     rc = fn(y_diag.data_ptr(), dA.data_ptr(), C_.data_ptr(), H_in.data_ptr(), y.data_ptr(),

@@ -31,8 +31,8 @@ from repro_torch.launch import serve
 GROUPS = [  # (group, substrings of the kernel name), first match wins
     ("flash_attention kernel", ("flash_fwd_mma_kernel", "flash_fwd_kernel")),  # bf16, fp32
     ("paged_decode kernel", ("paged_decode_partial_kernel", "paged_decode_combine_kernel")),
-    ("ssd_states kernel", ("ssd_states_kernel",)),
-    ("ssd_output kernel", ("ssd_output_kernel",)),
+    ("ssd_states kernel", ("ssd_states_mma_kernel", "ssd_states_kernel")),  # bf16, fp32
+    ("ssd_output kernel", ("ssd_output_mma_kernel", "ssd_output_kernel")),
     ("rglru_scan kernel", ("rglru_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "splitk", "cublas", "nvjet")),
     ("copy/fill", ("memcpy", "memset", "copy", "fill")),

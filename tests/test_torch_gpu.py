@@ -172,6 +172,81 @@ def test_ssd_kernels_match_plain(cuda, b, t, h, p, n, chunk, dtype):
     _ssd_close(H_ref, H_last, "float32")
 
 
+# the bf16 tensor-core kernels' tile edges: (b, t, h, p, n, chunk) with t not
+# a multiple of 16 or of the 64-wide j-tile, chunks of 100 and 45, n of 16,
+# 32, 24 (not a multiple of 16) and 256, p of 16 to 128
+SSD_EDGES = [
+    (1, 77, 2, 16, 16, 32), (1, 130, 2, 32, 32, 100), (2, 200, 2, 64, 256, 256),
+    (1, 333, 2, 128, 24, 64), (1, 45, 3, 64, 128, 45), (1, 260, 2, 128, 256, 100),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,h,p,n,chunk", SSD_EDGES)
+def test_ssd_bf16_tensor_core_edges(cuda, b, t, h, p, n, chunk):
+    test_ssd_kernels_match_plain(cuda, b, t, h, p, n, chunk, "bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n", [20, 10])
+def test_ssd_kernels_read_views_of_xbc(cuda, dtype, n):
+    """x, B and C as views into one fused tensor, as the model's xBC (no
+    copy): the B/C rows end inside a 16-byte piece, and at n = 10 the rows of
+    H_in do not start on 16 bytes."""
+    rng = np.random.default_rng(5)
+    b, t, h, p, chunk = 1, 150, 2, 32, 64
+    xbc = _randn(rng, (b, t, h * p + 2 * 24), dtype, cuda)
+    x = xbc[..., :h * p].view(b, t, h, p)
+    B_ = xbc[..., h * p:h * p + n].view(b, t, 1, n)
+    C_ = xbc[..., h * p + 24:h * p + 24 + n].view(b, t, 1, n)
+    dA = -torch.from_numpy(np.abs(rng.normal(size=(b, t, h))).astype(np.float32)).to(cuda) * 0.3
+    y_diag, S = ssd_states(x, dA, B_, C_, chunk)
+    yd_ref, S_ref = ref.ssd_states_reference(x, dA, B_, C_, chunk)
+    _ssd_close(yd_ref, y_diag, "float32")
+    _ssd_close(S_ref, S, "float32")
+    y, H_last = ssd_chunked_cuda(x, dA, B_, C_, chunk)
+    y_ref, H_ref = ref.ssd_chunk_reference(x, dA, B_, C_)
+    _ssd_close(y_ref, y, dtype)
+    _ssd_close(H_ref, H_last, "float32")
+
+
+@pytest.mark.gpu
+def test_ssd_bf16_rejects_misaligned_rows(cuda):
+    """The bf16 kernels copy rows in 16-byte pieces: a view whose rows do not
+    start on 16 bytes raises; fp32 takes it."""
+    rng = np.random.default_rng(6)
+    b, t, h, p, n = 1, 64, 2, 16, 16
+    x, dA, B_, C_ = _ssd_inputs(rng, b, t, h, p, n, "bfloat16", cuda)
+    x_off = _randn(rng, (b, t, h, p + 8), "bfloat16", cuda)[..., 1:p + 1]
+    with pytest.raises(ValueError, match="16 bytes"):
+        ssd_states(x_off, dA, B_, C_, 32)
+    B_odd = _randn(rng, (b, t, 1, n + 1), "bfloat16", cuda)[..., :n]
+    with pytest.raises(ValueError, match="16 bytes"):
+        ssd_states(x, dA, B_odd, C_, 32)
+    y_diag, S = ssd_states(x, dA, B_, C_, 32)
+    H_in, _ = inter_chunk_scan(S, dA, 32)
+    with pytest.raises(ValueError, match="16 bytes"):
+        ssd_output(y_diag, dA, B_odd, H_in, torch.bfloat16)
+    x32 = _randn(rng, (b, t, h, p + 8), "float32", cuda)[..., 1:p + 1]
+    B32 = _randn(rng, (b, t, 1, n + 1), "float32", cuda)[..., :n]
+    C32 = _randn(rng, (b, t, 1, n), "float32", cuda)
+    y_diag, S = ssd_states(x32, dA, B32, C32, 32)
+    yd_ref, S_ref = ref.ssd_states_reference(x32, dA, B32, C32, 32)
+    _ssd_close(yd_ref, y_diag, "float32")
+    _ssd_close(S_ref, S, "float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ssd_chunked_replays_in_cuda_graph(cuda, dtype):
+    """One capture and two replays of ssd_chunked_cuda (both kernels and the
+    inter-chunk scan) give its eager result bit for bit."""
+    x, dA, B_, C_ = _ssd_inputs(np.random.default_rng(7), 1, 300, 4, 64, 128, dtype, cuda)
+    first, out = _graph_replay(lambda: ssd_chunked_cuda(x, dA, B_, C_, 256))
+    assert all(torch.equal(a, b) for a, b in zip(first, out))
+
+
 @pytest.mark.gpu
 def test_ssd_kernel_rejects_cpu_tensors_and_groups(cuda):
     rng = np.random.default_rng(3)

@@ -1,8 +1,10 @@
 """The port's SSD pieces on the CPU against the reference: the sequential
 oracle over the tests/test_kernels.py grid, the plain versions of the two
 CUDA kernels composed with the inter-chunk scan against the Pallas kernel in
-interpret mode, the model's chunked SSD (jnp port) and its one-token decode
-step. The CUDA kernels themselves are held against the plain versions on the
+interpret mode and, with bf16 inputs, against the oracle and the JAX model,
+the three-term bf16 split of the tensor-core kernels and the flip check
+behind it, the model's chunked SSD (jnp port) and its one-token decode step.
+The CUDA kernels themselves are held against the plain versions on the
 card, in tests/test_torch_gpu.py."""
 import jax
 import jax.numpy as jnp
@@ -16,6 +18,7 @@ from repro.models import mamba2 as jmamba2
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ssd_scan import inter_chunk_scan, ssd_chunked_cuda
+from repro_torch.launch import ssd_precision
 from repro_torch.models import mamba2
 
 torch.set_num_threads(1)
@@ -80,6 +83,77 @@ def test_kernel_plain_versions_match_oracle(b, t, h, p, n, chunk):
     yr, sr = ref.ssd_chunk_reference(x, dA, B_, C_)
     _close(yr.numpy(), y, TOL["float32"])
     _close(sr.numpy(), H_last, TOL["float32"])
+
+
+@pytest.mark.parametrize("b,t,h,p,n,chunk", SSD_GRID + [(2, 70, 3, 16, 16, 32)])
+def test_plain_versions_in_bf16_match_oracle(b, t, h, p, n, chunk):
+    """The plain versions with bf16 inputs, as the tensor-core kernels take
+    them (every fp32 operand as three bf16 terms, so nothing else is
+    rounded), chained through the inter-chunk scan: y within
+    tests/test_kernels.py::test_ssd_chunk_sweep's bf16 tolerance of the
+    sequential oracle, the state within the fp32 one."""
+    _, (x, dA, B_, C_) = _both(_inputs(b, t, h, p, n, seed=4), "bfloat16")
+    y_diag, S = ref.ssd_states_reference(x, dA, B_, C_, chunk)
+    H_in, H_last = inter_chunk_scan(S, dA, chunk)
+    y = ref.ssd_output_reference(y_diag, dA, C_, H_in, x.dtype)
+    yr, sr = ref.ssd_chunk_reference(x, dA, B_, C_)
+    assert y.dtype == torch.bfloat16
+    _close(yr.float().numpy(), y, TOL["bfloat16"])
+    _close(sr.numpy(), H_last, TOL["float32"])
+
+
+@pytest.mark.parametrize("b,t,h,p,n,chunk", [(2, 70, 4, 16, 8, 32), (1, 20, 2, 16, 8, 32), (1, 128, 4, 32, 64, 32)])
+def test_plain_versions_in_bf16_match_jax_model_in_fp32(b, t, h, p, n, chunk):
+    """The same chain against the JAX model's ssd_chunked on the same bf16
+    inputs computed in fp32, which is what the kernels compute: within the
+    bf16 tolerance (y is rounded to bf16). The JAX model's bf16 path rounds
+    the scores, decay_states, H and state_decay to bf16 as well
+    (src/repro/models/mamba2.py:75-99) and is further from the sequential
+    oracle than the kernels are (python -m repro_torch.launch.ssd_precision)."""
+    j, (x, dA, B_, C_) = _both(_inputs(b, t, h, p, n, seed=2), "bfloat16")
+    f32 = [a.astype(jnp.float32) for a in j]
+    yr, sr = jmamba2.ssd_chunked(*f32, chunk)
+    y_diag, S = ref.ssd_states_reference(x, dA, B_, C_, chunk)
+    H_in, H_last = inter_chunk_scan(S, dA, chunk)
+    _close(yr, ref.ssd_output_reference(y_diag, dA, C_, H_in, x.dtype), TOL["bfloat16"])
+    _close(sr, H_last, TOL["float32"])
+
+
+def test_bf16x3_terms_sum_to_the_value():
+    """The kernels' three-term split: each term is a bf16 value and the three
+    sum to the fp32 value exactly, from 1e-13 to 1e13 in magnitude."""
+    rng = np.random.default_rng(5)
+    v = rng.normal(size=200_000) * np.exp(rng.uniform(-30, 30, size=200_000))
+    v = torch.from_numpy(np.concatenate([v, [0.0, 1.0, -3.0, 65504.0]]).astype(np.float32))
+    terms = ref.bf16x3(v)
+    for term in terms:
+        assert torch.equal(term.bfloat16().float(), term)
+    assert torch.equal(sum(t.double() for t in terms), v.double())
+
+
+@pytest.mark.parametrize("b,t,h,p,n,chunk", SSD_GRID + [(1, 300, 2, 64, 128, 100)])
+def test_three_term_operands_do_not_flip(b, t, h, p, n, chunk):
+    """The flip check: with the scores and x ⊙ decay as three bf16 terms (the
+    kernels' operands), y_diag moves by no more than the fp32 tolerance when
+    C·Bᵀ is summed in float64 instead of float32, and y_diag and S when the
+    cumsum of dA is added up in the kernels' scan order."""
+    x, dA, B_, C_ = ssd_precision.inputs(b, t, h, p, n)
+    y0, S0 = ssd_precision.states(x, dA, B_, C_, chunk, "bf16x3")
+    y1, _ = ssd_precision.states(x, dA, B_, C_, chunk, "bf16x3", cb_f64=True)
+    y2, S2 = ssd_precision.states(x, dA, B_, C_, chunk, "bf16x3", scan_order=True)
+    for a, b_ in ((y0, y1), (y0, y2), (S0, S2)):
+        assert ssd_precision.spread(a, b_, TOL["float32"]) <= 1.0
+
+
+def test_rounding_the_scores_to_bf16_would_flip_past_the_tolerance():
+    """Why the kernels split instead of rounding where the JAX model rounds
+    (the scores, mamba2.py:75): one C·Bᵀ summed in another order rounds some
+    scores to the neighbouring bf16 value, which moves y_diag far past its
+    fp32 tolerance (147x at this shape)."""
+    x, dA, B_, C_ = ssd_precision.inputs(2, 256, 2, 64, 128)
+    y0, _ = ssd_precision.states(x, dA, B_, C_, 64, "bf16")
+    y1, _ = ssd_precision.states(x, dA, B_, C_, 64, "bf16", cb_f64=True)
+    assert ssd_precision.spread(y0, y1, TOL["float32"]) > 10
 
 
 def test_kernel_plain_versions_match_pallas_interpret():
