@@ -16,7 +16,11 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    (paged decode's per-split partials at every split boundary, flash in bf16
    at every head_dim with ragged T, windows under a tile and strided views,
    a CUDA-graph replay of each), the bf16 SSD kernels' tile edges and a
-   CUDA-graph replay of the chunked SSD, and at the serving shapes of
+   CUDA-graph replay of the chunked SSD, the chunked RG-LRU kernel at its
+   chunk and tile edges (T 8192, B 3 with h0, aligned views cut to a ragged
+   W) and in long memory (a → 1, so every earlier chunk's fold shows) with
+   two eager calls and a CUDA-graph replay bit-equal, and at the serving
+   shapes of
    qwen3-4b (attention, head_dim 128), recurrentgemma-9b (attention at
    head_dim 256, RG-LRU) and mamba2-1.3b (SSD), with times of kernel, plain
    version and the PyTorch library call where one exists (a yardstick only:
@@ -26,7 +30,10 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    layers) with a 64-token prefill, mamba2-1.3b (2 layers) with a 512-token
    prefill (2 chunks of 256) and recurrentgemma-9b (3 layers, one RRA group)
    with a 2048-token prefill, each followed by 4 teacher-forced decode steps
-   (recurrentgemma's wrap its 2048-slot ring), logits compared;
+   (recurrentgemma's wrap its 2048-slot ring), logits compared; then the
+   bf16 path that serves (bf16 weights), card against CPU at the same
+   depths and prompts, recorded and not gated: the logits' max|Δ| and the
+   first of 8 greedy decode steps whose tokens differ;
 5. serving: ``repro_torch.launch.serve`` at full width and depth in bf16:
    qwen3-4b (8 requests, prompt 128, 32 new tokens, max batch 4), then
    mamba2-1.3b (8 requests, prompt 1024, max_len 1280), then
@@ -88,8 +95,17 @@ SSD_SERVING = (1, 1024, 64, 64, 128, 256)
 # chunks of 45 and 100, n of 16, 24 and 256, p of 16 and 128
 SSD_EDGES = [(1, 77, 2, 16, 16, 32), (1, 45, 3, 64, 128, 45), (1, 333, 2, 128, 24, 64),
              (1, 260, 2, 128, 256, 100)]
-# (B, T, W): tests/test_kernels.py::test_rglru_sweep, then a ragged T and W
-RGLRU_GRID = [(2, 128, 256), (1, 256, 512), (1, 300, 200)]
+# (B, T, W): tests/test_kernels.py::test_rglru_sweep, then a ragged T and W;
+# then the chunked kernel's edges (chunks of 128 steps, tiles of 32
+# channels): T under one chunk, one under and one over it, a ragged last
+# chunk with W past a tile (rows not 16-byte aligned: plain loads), T 8192,
+# and W 4100 over 129 tiles
+RGLRU_GRID = [(2, 128, 256), (1, 256, 512), (1, 300, 200), (3, 5, 7), (2, 127, 128), (2, 129, 384),
+              (1, 1000, 130), (1, 8192, 1024), (1, 97, 4100)]
+# (B, T, W, h0 given): long memory (rglru_inputs(long_memory=True)), where
+# every earlier chunk's carry and h0's reach the last chunk: T 8192 is 64
+# chunks, so the last one folds 8 runs of 8; B 3 with h0 over 8 chunks
+RGLRU_LONG = [(1, 8192, 256, False), (3, 1000, 300, True)]
 RGLRU_SERVING = (1, 2048, 4096)  # recurrentgemma-9b, prompt 2048
 TOL = {torch.float32: (2e-5, 1e-2), torch.bfloat16: (2e-2, 1e-2)}  # tests/test_kernels.py::_tol
 SSD_TOL = {torch.float32: (5e-4, 1e-3), torch.bfloat16: (2e-2, 1e-2)}  # test_ssd_chunk_sweep's; bf16 y
@@ -450,10 +466,17 @@ def phase_hd256_kernels(rng) -> dict:
     return out
 
 
-def rglru_inputs(rng, B, T, W, dtype):
+def rglru_inputs(rng, B, T, W, dtype, long_memory=False):
+    """λ in [0.5, 4] as the model's initialisation, where ∏a over a chunk of
+    128 steps is 0 in fp32; with ``long_memory``, tests/test_torch_rglru.py's
+    long memory: λ in [−4, −1], r ≤ 0.01 and x > 0, a within 0.025 of 1
+    and ∏a over a chunk 0.2–0.9, as with trained weights."""
     x = randn(rng, (B, T, W), dtype)
     r, i = (torch.from_numpy(rng.uniform(size=(B, T, W)).astype(np.float32)).to("cuda", dtype) for _ in range(2))
-    lam = torch.from_numpy(rng.uniform(0.5, 4.0, size=(W,)).astype(np.float32)).cuda()
+    lam = torch.from_numpy(rng.uniform(*((-4.0, -1.0) if long_memory else (0.5, 4.0)),
+                                       size=(W,)).astype(np.float32)).cuda()
+    if long_memory:
+        x, r = x.abs(), r * 0.01
     return x, r, i, lam
 
 
@@ -466,12 +489,31 @@ def check_rglru(name, x, r, i, lam, h0=None) -> float:
 
 def phase_rglru_kernel(rng) -> dict:
     """The RG-LRU kernel against its plain version (the sequential loop) over
-    the tests/test_kernels.py grid and a ragged shape in fp32 and bf16, with
-    a carried h0 (two calls against one), then checked and timed at
+    the tests/test_kernels.py grid and the chunked kernel's edges in fp32 and
+    bf16, B 3 with a given h0, x/r/i as 16-byte aligned views cut to W 130,
+    long memory at T 8192 and at B 3 with h0 (the look-back's folds seen),
+    two eager calls and a CUDA-graph replay bit-equal in long memory, a
+    carried h0 (two calls against one), then checked and timed at
     recurrentgemma-9b's serving shape in bf16."""
     for dtype in (torch.float32, torch.bfloat16):
         for B, T, W in RGLRU_GRID:
             check_rglru(f"{B},{T},{W} {dtype}", *rglru_inputs(rng, B, T, W, dtype))
+        check_rglru(f"3,200,300 given h0 {dtype}", *rglru_inputs(rng, 3, 200, 300, dtype),
+                    h0=randn(rng, (3, 300), torch.float32))
+        xri = randn(rng, (2, 150, 3, 256), dtype)
+        xri[:, :, 1:] = torch.sigmoid(xri[:, :, 1:])
+        check_rglru(f"views of (2,150,3,256) cut to W 130 {dtype}", *(xri[:, :, k, :130] for k in range(3)),
+                    torch.linspace(0.5, 4.0, 130, device="cuda"))
+        for B, T, W, given in RGLRU_LONG:
+            h0 = randn(rng, (B, W), torch.float32) if given else None
+            check_rglru(f"long memory {B},{T},{W}{' given h0' if given else ''} {dtype}",
+                        *rglru_inputs(rng, B, T, W, dtype, long_memory=True), h0=h0)
+        x, r, i, lam = rglru_inputs(rng, 2, 2048, 1024, dtype, long_memory=True)
+        h0 = randn(rng, (2, 1024), torch.float32)
+        run = lambda: torch.cat([t.float().flatten() for t in rglru_scan(x, r, i, lam, h0)])  # noqa: E731
+        if not torch.equal(run(), run()):
+            raise AssertionError(f"rglru_scan {dtype}: two eager calls differ")
+        graph_replay_matches(f"rglru_scan {dtype} (two eager calls bit-equal)", run)
     x, r, i, lam = rglru_inputs(rng, 1, 128, 128, torch.float32)
     y1, h1 = rglru_scan(x[:, :64], r[:, :64], i[:, :64], lam)
     y2, h2 = rglru_scan(x[:, 64:], r[:, 64:], i[:, 64:], lam, h1)
@@ -604,6 +646,44 @@ def phase_parity(arch: str, prompt_len: int, n_layers: int = 2) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_bf16_record(arch: str, prompt_len: int, n_layers: int = 2, steps: int = 8) -> None:
+    """The bf16 path that serves (bf16 weights and activations, as
+    ``launch/serve.py`` builds it), card (kernels) against CPU (plain path),
+    recorded and not gated (ROADMAP Queue C 11): one set of seeded weights
+    drawn on the card, depth cut as in ``phase_parity``, the prompt
+    prefilled, then ``steps`` greedy decode steps on each side, each fed its
+    own argmax. Prints the logits' max|Δ| over the prefill and the steps
+    before the tokens first differ, and that first step (None: never). Fails
+    only on logits that are not finite or of the wrong shape."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    t0 = time.perf_counter()
+    gpu = build_model(cfg, "cuda", param_dtype=torch.bfloat16).init(torch.Generator(device="cuda").manual_seed(0))
+    cpu = build_model(cfg, "cpu", param_dtype=torch.bfloat16)
+    cpu.load_state_dict(gpu.state_dict())
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, size=(1, prompt_len))).long()
+    err, diverged = 0.0, None
+    with torch.no_grad():
+        lc, cc = cpu.prefill(prompt, pad_to=prompt_len + 192)
+        lg, cg = gpu.prefill(prompt.cuda(), pad_to=prompt_len + 192)
+        for step in range(steps + 1):
+            lg = lg.cpu()
+            if not torch.isfinite(lg).all() or lg.shape != (1, cfg.padded_vocab):
+                raise AssertionError(f"{arch} bf16: bad logits at step {step}, shape {tuple(lg.shape)}")
+            if diverged is None:
+                err = max(err, (lc.float() - lg.float())[:, : cfg.vocab].abs().max().item())
+            tc, tg = int(lc[:, : cfg.vocab].argmax()), int(lg[:, : cfg.vocab].argmax())
+            if diverged is None and tc != tg:
+                diverged = step
+            if step < steps:
+                lc, cc = cpu.decode_step(cc, torch.tensor([[tc]]))
+                lg, cg = gpu.decode_step(cg, torch.tensor([[tg]], device="cuda"))
+    print(f"[4 bf16 record] {arch} full width, {n_layers} layers, bf16, prefill {prompt_len} + {steps} greedy "
+          f"decode steps: logits max|d| {err:.3e} before the tokens differ, first differing step {diverged} "
+          f"(0 = the prefill's token), {time.perf_counter() - t0:.1f} s")
+    del cpu, gpu, cc, cg
+    torch.cuda.empty_cache()
+
+
 def layers_per_call(cfg) -> dict:
     """{kernel: (launches per prefill call, per decode call)}: one per layer
     of the kernel's kind; kernels not listed launch never."""
@@ -672,6 +752,9 @@ def main() -> int:
     phase_parity("qwen3-4b", 64)
     phase_parity("mamba2-1.3b", 512)
     phase_parity("recurrentgemma-9b", 2048, n_layers=3)
+    phase_bf16_record("qwen3-4b", 64)
+    phase_bf16_record("mamba2-1.3b", 512)
+    phase_bf16_record("recurrentgemma-9b", 2048, n_layers=3)
     by_path = phase_serve()
     # a kernel's launches: those of the first path that runs it, whose shapes
     # its top-level times are taken at; every path's count beside them, and

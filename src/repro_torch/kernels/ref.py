@@ -184,3 +184,63 @@ def rglru_reference(x, r, i, lam, h0=None):
         h = a * h + beta * (i[:, t].float() * x[:, t].float())
         ys.append(h)
     return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def rglru_chunked_reference(x, r, i, lam, h0=None, chunk: int = 64, sub: int | None = None,
+                            runs: int | None = None):
+    """The CUDA kernel's decomposition of the RG-LRU, in plain PyTorch: the
+    same function as :func:`rglru_reference` in another summation order, for
+    tests (nothing on the serving path calls it). T is cut into chunks of
+    ``chunk`` steps, each into sub-chunks of ``sub`` (None: the whole chunk);
+    steps past T are identities (a = 1, u = 0). Each sub-chunk runs from
+    h = 0 to (∏a, h); the sub-chunks fold in order into the chunk's (A, U).
+    The h entering chunk c: with ``runs`` None, the chunks before it folded
+    in order from h0; with ``runs`` n, those c chunks cut into n runs of
+    ⌈c/n⌉, each folded in order from the identity, then the runs folded in
+    order from h0. It folds on through the sub-chunks into the h entering
+    each sub-chunk, and each sub-chunk runs again from there. The kernel
+    takes chunk 128, sub 16, runs 8."""
+    B, T, W = x.shape
+    sub = chunk if sub is None else sub
+    if chunk % sub:
+        raise ValueError(f"chunk {chunk} is not a multiple of sub {sub}")
+    lam = lam.float()
+    log_a = r.float() * (-8.0 * (lam.clamp(min=0) + torch.log1p(torch.exp(-lam.abs()))))
+    a = torch.exp(log_a)
+    u = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (i.float() * x.float())
+    nc, n_sub = -(-T // chunk), chunk // sub
+    pad = (0, 0, 0, nc * chunk - T)
+    a = F.pad(a, pad, value=1.0).view(B, nc, n_sub, sub, W)
+    u = F.pad(u, pad).view(B, nc, n_sub, sub, W)
+    prod = torch.ones((B, nc, n_sub, W), dtype=torch.float32, device=x.device)
+    h = torch.zeros_like(prod)
+    for k in range(sub):
+        h = a[:, :, :, k] * h + u[:, :, :, k]
+        prod = prod * a[:, :, :, k]
+    A, U = prod[:, :, 0], h[:, :, 0]
+    for j in range(1, n_sub):
+        U = prod[:, :, j] * U + h[:, :, j]
+        A = A * prod[:, :, j]
+    h_init = torch.zeros((B, W), dtype=torch.float32, device=x.device) if h0 is None else h0.float()
+    carry, starts = h_init, []
+    for c in range(nc):
+        if runs is not None:  # the kernel's runs, each from the identity
+            n, carry = -(-c // runs), h_init
+            for j in range(runs):
+                run_a, run_u = torch.ones_like(h_init), torch.zeros_like(h_init)
+                for k in range(min(c, j * n), min(c, j * n + n)):
+                    run_u = A[:, k] * run_u + U[:, k]
+                    run_a = run_a * A[:, k]
+                carry = run_a * carry + run_u
+        hs = carry
+        for j in range(n_sub):
+            starts.append(hs)
+            hs = prod[:, c, j] * hs + h[:, c, j]
+        carry = A[:, c] * carry + U[:, c]
+    h = torch.stack(starts, dim=1).view(B, nc, n_sub, W)
+    ys = []
+    for k in range(sub):
+        h = a[:, :, :, k] * h + u[:, :, :, k]
+        ys.append(h)
+    y = torch.stack(ys, dim=3).reshape(B, nc * chunk, W)
+    return y[:, :T].to(x.dtype), y[:, -1].clone()  # steps past T leave h as it was at T - 1

@@ -2,8 +2,10 @@
 
 Replaces ``repro/kernels/rglru_scan.py::rglru_pallas``. x, r and i are read
 in place through their strides (unit stride along W); any T and W are taken.
-CUDA tensors only: :func:`repro_torch.kernels.ops.rglru` sends CPU tensors to
-the plain version.
+The kernel is a chunked scan over T in one launch; its ticket, flags and
+chunk aggregates live in a workspace allocated here per call (from the
+caching allocator, so a CUDA graph keeps its own). CUDA tensors only:
+:func:`repro_torch.kernels.ops.rglru` sends CPU tensors to the plain version.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# x, r, i, lam, h0, y, h_last, workspace; B, T, W; the (b, t) strides of x, r, i; dtype, stream
+ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p]
 _fn = None
 
 
@@ -22,12 +26,13 @@ def _entry():
     if _fn is None:
         lib = _build.library("rglru_scan")
         fn = lib.rglru_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 6 + [
-            ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
+        lib.rglru_scan_workspace_bytes.argtypes = [ctypes.c_int] * 3
+        lib.rglru_scan_workspace_bytes.restype = ctypes.c_longlong
         lib.rglru_scan_error_string.argtypes = [ctypes.c_int]
         lib.rglru_scan_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.rglru_scan_error_string)
+        _fn = (fn, lib.rglru_scan_workspace_bytes, lib.rglru_scan_error_string)
     return _fn
 
 
@@ -52,11 +57,12 @@ def rglru_scan(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor, lam: torch.Ten
                            or not h0.is_contiguous()):
         raise ValueError(f"h0 must be contiguous fp32 ({B}, {W}) on {x.device}")
     lam32 = lam.to(torch.float32).contiguous()
-    fn, err = _entry()
+    fn, workspace_bytes, err = _entry()
     y = torch.empty((B, T, W), dtype=x.dtype, device=x.device)
     h_last = torch.empty((B, W), dtype=torch.float32, device=x.device)
+    ws = torch.empty(workspace_bytes(B, T, W), dtype=torch.uint8, device=x.device)
     rc = fn(x.data_ptr(), r.data_ptr(), i.data_ptr(), lam32.data_ptr(),
-            h0.data_ptr() if h0 is not None else None, y.data_ptr(), h_last.data_ptr(),
+            h0.data_ptr() if h0 is not None else None, y.data_ptr(), h_last.data_ptr(), ws.data_ptr(),
             B, T, W, *x.stride()[:2], *r.stride()[:2], *i.stride()[:2], _DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:

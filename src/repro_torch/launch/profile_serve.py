@@ -33,7 +33,7 @@ GROUPS = [  # (group, substrings of the kernel name), first match wins
     ("paged_decode kernel", ("paged_decode_partial_kernel", "paged_decode_combine_kernel")),
     ("ssd_states kernel", ("ssd_states_mma_kernel", "ssd_states_kernel")),  # bf16, fp32
     ("ssd_output kernel", ("ssd_output_mma_kernel", "ssd_output_kernel")),
-    ("rglru_scan kernel", ("rglru_kernel",)),
+    ("rglru_scan kernel", ("rglru_chunk_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "splitk", "cublas", "nvjet")),
     ("copy/fill", ("memcpy", "memset", "copy", "fill")),
     ("reduction", ("reduce",)),

@@ -301,15 +301,26 @@ def test_decode_over_the_ring_view(cuda):
 
 
 # (B, T, W): tests/test_kernels.py::test_rglru_sweep, a ragged T and W, T
-# under one unrolled group, and the serving shape of recurrentgemma-9b
-RGLRU_GRID = [(2, 128, 256), (1, 256, 512), (1, 300, 200), (3, 5, 7), (1, 2048, 4096)]
+# under one chunk of 128 steps, and the serving shape of recurrentgemma-9b;
+# then the chunked kernel's edges: T one under and one over a chunk, a
+# ragged last chunk with W past a 32-channel tile (rows not 16-byte
+# aligned: plain loads), T 8192, and W 4100 over 129 tiles
+RGLRU_GRID = [(2, 128, 256), (1, 256, 512), (1, 300, 200), (3, 5, 7), (1, 2048, 4096),
+              (2, 127, 128), (2, 129, 384), (1, 1000, 130), (1, 8192, 1024), (1, 97, 4100)]
 
 
-def _rglru_inputs(rng, B, T, W, dtype, device):
+def _rglru_inputs(rng, B, T, W, dtype, device, long_memory=False):
+    """λ in [0.5, 4] as the model's initialisation, where ∏a over a chunk of
+    128 steps is 0 in fp32; with ``long_memory``, test_torch_rglru.py's long
+    memory: λ in [−4, −1], r ≤ 0.01 and x > 0, a within 0.025 of 1 and ∏a
+    over a chunk 0.2–0.9, as with trained weights."""
     x = _randn(rng, (B, T, W), dtype, device)
     r, i = (torch.from_numpy(rng.uniform(size=(B, T, W)).astype(np.float32)).to(device, DTYPES[dtype])
             for _ in range(2))
-    lam = torch.from_numpy(rng.uniform(0.5, 4.0, size=(W,)).astype(np.float32)).to(device)
+    lam = torch.from_numpy(rng.uniform(*((-4.0, -1.0) if long_memory else (0.5, 4.0)),
+                                       size=(W,)).astype(np.float32)).to(device)
+    if long_memory:
+        x, r = x.abs(), r * 0.01
     return x, r, i, lam
 
 
@@ -340,6 +351,83 @@ def test_rglru_kernel_carries_state_and_reads_views(cuda):
     torch.cuda.synchronize()
     np.testing.assert_allclose(y_ref.cpu().numpy(), torch.cat([y1, y2], 1).cpu().numpy(), atol=1e-5, rtol=0)
     np.testing.assert_allclose(h_ref.cpu().numpy(), h2.cpu().numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rglru_kernel_takes_h0_over_a_batch(cuda, dtype):
+    """B 3 with a given h0, each sequence over 4 chunks with a ragged last."""
+    rng = np.random.default_rng(9)
+    x, r, i, lam = _rglru_inputs(rng, 3, 200, 300, dtype, cuda)
+    h0 = _randn(rng, (3, 300), "float32", cuda)
+    y, h = rglru_scan(x, r, i, lam, h0)
+    y_ref, h_ref = ref.rglru_reference(x, r, i, lam, h0)
+    torch.cuda.synchronize()
+    _close(y_ref, y, dtype)
+    _close(h_ref, h, "float32")
+
+
+# (B, T, W, h0 given) in long memory: T 8192 is 64 chunks, so the last one
+# folds 8 runs of 8; B 3 with h0 over 8 chunks, W past a tile
+RGLRU_LONG = [(1, 8192, 256, False), (3, 1000, 300, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,T,W,given_h0", RGLRU_LONG)
+def test_rglru_kernel_carries_long_memory(cuda, B, T, W, given_h0, dtype):
+    """a → 1: the aggregates of every earlier chunk, and h0, reach the last
+    chunk, so runs folded out of order, skipped or read before they are
+    published, or h0 dropped past chunk 0, show as errors far past the
+    tolerance (with λ in [0.5, 4] they are multiplied by 0)."""
+    rng = np.random.default_rng(12)
+    x, r, i, lam = _rglru_inputs(rng, B, T, W, dtype, cuda, long_memory=True)
+    h0 = _randn(rng, (B, W), "float32", cuda) if given_h0 else None
+    y, h = rglru_scan(x, r, i, lam, h0)
+    y_ref, h_ref = ref.rglru_reference(x, r, i, lam, h0)
+    torch.cuda.synchronize()
+    assert float(y_ref.float().abs().max()) > 5.0  # h grows over the whole sequence
+    if given_h0:  # h0 moves the last chunk past the tolerance
+        y_zero, _ = ref.rglru_reference(x, r, i, lam)
+        moved = (y_ref.float() - y_zero.float())[:, -128:].abs() - 1e-2 * y_ref.float()[:, -128:].abs()
+        assert float(moved.max()) > _tol(dtype)
+    _close(y_ref, y, dtype)
+    _close(h_ref, h, "float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rglru_kernel_reads_ragged_views(cuda, dtype):
+    """x, r, i as views of one (2, 150, 3, 256) tensor cut to W 130: rows
+    16-byte aligned, so the copies run, and the last piece of each row holds
+    2 channels of 8 (bf16) or 4 (fp32)."""
+    rng = np.random.default_rng(10)
+    xri = _randn(rng, (2, 150, 3, 256), dtype, cuda)
+    xri[:, :, 1:] = torch.sigmoid(xri[:, :, 1:])
+    x, r, i = (xri[:, :, k, :130] for k in range(3))
+    lam = torch.linspace(0.5, 4.0, 130, device=cuda)
+    y, h = rglru_scan(x, r, i, lam)
+    y_ref, h_ref = ref.rglru_reference(x, r, i, lam)
+    torch.cuda.synchronize()
+    _close(y_ref, y, dtype)
+    _close(h_ref, h, "float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rglru_kernel_is_bit_identical_and_replays_in_cuda_graph(cuda, dtype):
+    """The chunks fold in a fixed order, never in the order they finish: two
+    eager calls are bit-equal, and one capture with two replays gives the
+    eager result bit for bit (the workspace comes from the graph's pool). In
+    long memory over 16 chunks, where the order of the folds shows."""
+    rng = np.random.default_rng(11)
+    x, r, i, lam = _rglru_inputs(rng, 2, 2048, 1024, dtype, cuda, long_memory=True)
+    h0 = _randn(rng, (2, 1024), "float32", cuda)
+    y1, h1 = rglru_scan(x, r, i, lam, h0)
+    y2, h2 = rglru_scan(x, r, i, lam, h0)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+    first, out = _graph_replay(lambda: torch.cat([t.float().flatten() for t in rglru_scan(x, r, i, lam, h0)]))
+    assert torch.equal(first, out)
 
 
 @pytest.mark.gpu

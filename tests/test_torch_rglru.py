@@ -137,3 +137,55 @@ def test_dispatch_by_device_and_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         rglru_kernel(x, r, i, lam, h0)
     assert rglru_kernel.launches == launches
+
+
+# The CUDA kernel's chunked order (ref.rglru_chunked_reference): chunks of 1,
+# 7 (ragged last chunk), 64 (ragged), T itself and more than T; chunks of 64
+# in sub-chunks of 16 with the earlier chunks folded in 4 runs, chunks of 7
+# in runs, and the kernel's own (chunks of 128 in sub-chunks of 16, 8 runs);
+# each with a given h0, held at the kernel's tolerances against the
+# sequential plain version, the JAX model's associative scan and the Pallas
+# kernel in interpret mode.
+CHUNKED_T, CHUNKED_W = 100, 64
+CHUNKS = [(1, None, None), (7, None, None), (64, None, None), (CHUNKED_T, None, None), (CHUNKED_T + 28, None, None),
+          (64, 16, 4), (7, None, 4), (128, 16, 8)]
+
+
+def _chunked_case(dtype, seed, lam_range=(0.5, 4.0), long_memory=False, T=CHUNKED_T):
+    arrs = list(_inputs(2, T, CHUNKED_W, seed=seed, lam_range=lam_range))
+    if long_memory:  # r near 0 and x > 0: a → 1, and h grows over the whole sequence
+        arrs[0] = np.abs(arrs[0])
+        arrs[1] = arrs[1] * 0.01
+    return _both(arrs, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("chunk,sub,runs", CHUNKS)
+def test_chunked_order_matches_plain_jax_and_pallas(chunk, sub, runs, dtype):
+    (jx, jr, ji, jlam, jh0), (x, r, i, lam, h0) = _chunked_case(dtype, seed=7)
+    y, h = ref.rglru_chunked_reference(x, r, i, lam, h0, chunk, sub, runs)
+    assert y.dtype == x.dtype and y.shape == x.shape and h.dtype == torch.float32
+    y_seq, h_seq = ref.rglru_reference(x, r, i, lam, h0)
+    y_jax, h_jax = jrglru.rglru_scan(jx, jr, ji, jlam, jh0)
+    y_pl, h_pl = rglru_pallas(jx, jr, ji, jlam, h0=jh0, interpret=True)
+    for y_other, h_other in ((y_seq, h_seq), (y_jax, h_jax), (y_pl, h_pl)):
+        _close(np.asarray(y_other.float() if isinstance(y_other, torch.Tensor) else y_other, np.float32),
+               y, TOL[dtype])
+        _close(np.asarray(h_other, np.float32), h, TOL["float32"])
+
+
+@pytest.mark.parametrize("chunk,sub,runs", [(7, None, None), (7, None, 4), (64, 16, 4), (128, 16, 8),
+                                            (1024, None, None)])
+def test_chunked_order_long_memory(chunk, sub, runs):
+    """λ in [-4, -1] and r in [0, 0.01]: a within 1e-3 of 1, so h carries
+    across every chunk and grows (to ~10 by T = 1000, ragged). There the
+    chunked order departs most from the sequential one, in fp32."""
+    (jx, jr, ji, jlam, jh0), (x, r, i, lam, h0) = _chunked_case(
+        "float32", seed=8, lam_range=(-4.0, -1.0), long_memory=True, T=1000)
+    y, h = ref.rglru_chunked_reference(x, r, i, lam, h0, chunk, sub, runs)
+    y_seq, h_seq = ref.rglru_reference(x, r, i, lam, h0)
+    assert float(y_seq.abs().max()) > 5.0
+    y_jax, h_jax = jrglru.rglru_scan(jx, jr, ji, jlam, jh0)
+    for y_other, h_other in ((y_seq.numpy(), h_seq.numpy()), (y_jax, h_jax)):
+        _close(y_other, y, TOL["float32"])
+        _close(h_other, h, TOL["float32"])

@@ -203,3 +203,41 @@ def test_engine_tokens_equal_reference_engine_recurrentgemma():
     done = {r.req_id: r.tokens for r in engine.run_until_drained()}
     assert done == ref_done and all(len(t) == 6 for t in done.values())
     assert (engine.prefill_calls, engine.decode_calls) == (2, 10)
+
+
+# The bf16 path that serves against the reference's (ROADMAP Queue C 11):
+# the port's engine and the JAX engine on the reduced configs in bf16
+# compute, same fp32 weights, same prompts, 16 greedy tokens each. Measured:
+# one request of each family diverges, at token 7 (dense), 12 (mamba2) and
+# 13 (recurrentgemma) of 16 (0 is the prefill's), the others never. Asserted
+# is only that every request's first 4 tokens agree, with room below the
+# first divergence measured, as ties may flip with the thread count or build.
+BF16_CASES = {"llama3-8b": (dict(d_model=64, n_layers=2, vocab=256, vocab_pad_multiple=64), (8, 5, 12), 64, 1),
+              "mamba2-1.3b": ({}, (40, 53, 66), 128, 2),
+              "recurrentgemma-9b": (dict(n_layers=5), (40, 50), 80, 3)}
+BF16_AGREE = 4
+
+
+@pytest.mark.parametrize("arch", list(BF16_CASES))
+def test_bf16_engine_tokens_against_reference_engine(arch, capsys):
+    over, lens, max_len, key = BF16_CASES[arch]
+    kw = dict(over, dtype="bfloat16")
+    rcfg, cfg = ref_get_config(arch).reduced(**kw), get_config(arch).reduced(**kw)
+    params = ref_build_model(rcfg).init(jax.random.key(key))
+    model = build_model(cfg, "cpu")
+    model.load_state_dict(flatten(params_from_jax(jax.tree.map(np.asarray, params))))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in lens]
+    ref_engine = RefServingEngine(rcfg, params, max_batch=2, max_len=max_len, page_size=16)
+    engine = ServingEngine(model, max_batch=2, max_len=max_len, page_size=16)
+    for rid, p in enumerate(prompts):
+        ref_engine.submit(RefRequest(rid, p, max_new_tokens=16))
+        engine.submit(Request(rid, p, max_new_tokens=16))
+    ref_done = {r.req_id: r.tokens for r in ref_engine.run_until_drained()}
+    done = {r.req_id: r.tokens for r in engine.run_until_drained()}
+    first = {rid: next((k for k, (a, b) in enumerate(zip(done[rid], ref_done[rid])) if a != b), None)
+             for rid in sorted(done)}
+    with capsys.disabled():
+        print(f"\n{arch} bf16: first differing token per request (None: never) {first}")
+    assert all(len(done[rid]) == len(ref_done[rid]) == 16 for rid in done)
+    assert all(done[rid][:BF16_AGREE] == ref_done[rid][:BF16_AGREE] for rid in done)
