@@ -24,7 +24,9 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    qwen3-4b (attention, head_dim 128), recurrentgemma-9b (attention at
    head_dim 256, RG-LRU) and mamba2-1.3b (SSD), with times of kernel, plain
    version and the PyTorch library call where one exists (a yardstick only:
-   the port never calls it) beside the bound;
+   the port never calls it) beside the bound; flash also at the training
+   path's shape (B 2, T 512, H 32, K 8, head_dim 128, causal) in fp32 and
+   bf16;
 4. model parity, card (kernels) against CPU (plain path), fp32, one set of
    seeded weights drawn on the card, full width cut in depth: qwen3-4b (2
    layers) with a 64-token prefill, mamba2-1.3b (2 layers) with a 512-token
@@ -41,14 +43,32 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    overwrites ring slots); before each run every launch count is set to 0,
    and after it each kernel's count is checked against the layers of its
    kind times the prefill or decode calls;
-6. a ``kernels:`` summary line (launches and max|Δ| per kernel), the JSON
+6. training qwen3-4b: (a) the gradient check, card (flash kernel forward,
+   ``ops.Attention``'s backward) against CPU (the jnp-body port under
+   autograd), full width at 2 layers, gated in fp32 and in bf16 compute:
+   every leaf's gradient nonzero on both sides, loss |Δ| and each leaf's
+   max|Δ| over its max|g| ≤ 1e-3 in fp32 and ≤ 1e-2 in bf16
+   (``launch/grad_check.py``, which also reads planted flash faults); (b) full width
+   and depth (36 layers, 4.02 B parameters, fp32 masters, bf16 compute,
+   AdamW, remat), global batch 4 × 512 in 2 microbatches, 4 steps through
+   ``make_train_step``, every launch count set to 0 just before: a finite
+   loss at every step, flash launches = 36 × 2 (forward and recompute) × 2
+   microbatches × 4 steps and no other kernel, step ms, tokens/s and peak
+   memory under 80 GB; (c) in a child process with deterministic algorithms,
+   ``launch/train.py``'s trainer at full width and 1 layer, checkpointing
+   into an in-memory stand-in for a KVStore: 4 steps straight against 2,
+   then a new trainer that resumes from the store for 2 more, every leaf
+   of the state bit-equal;
+7. a ``kernels:`` summary line (launches and max|Δ| per kernel), the JSON
    line ``{"kernels": [...]}`` with every measured number, then the result
    line.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -62,6 +82,7 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
 from repro_torch.kernels import _build, decode_attention, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_module  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
@@ -69,8 +90,11 @@ from repro_torch.kernels.decode_attention import paged_decode_attention, paged_d
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import inter_chunk_scan, ssd_chunked_cuda, ssd_output, ssd_states  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import grad_check, serve, train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.training.optimizer import OptimizerConfig  # noqa: E402
+from repro_torch.training.train_step import TrainConfig, init_state, make_train_step  # noqa: E402
+from repro_torch.tree import leaves_with_paths  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # FLOP/s, fp32 FLOP/s outside the tensor cores
@@ -110,6 +134,7 @@ RGLRU_SERVING = (1, 2048, 4096)  # recurrentgemma-9b, prompt 2048
 TOL = {torch.float32: (2e-5, 1e-2), torch.bfloat16: (2e-2, 1e-2)}  # tests/test_kernels.py::_tol
 SSD_TOL = {torch.float32: (5e-4, 1e-3), torch.bfloat16: (2e-2, 1e-2)}  # test_ssd_chunk_sweep's; bf16 y
 PARITY_ATOL = 5e-3  # phase 4, see there
+MEMORY_LIMIT = 80e9  # phase 6b: bytes, one card
 KERNELS = {
     "flash_attention": dict(route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
                             replaces="src/repro/kernels/flash_attention.py:152"),
@@ -200,14 +225,14 @@ def bound(nbytes, flops, dtype):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_device() -> str:
+def phase_device() -> tuple[str, str]:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"[1 device] {name} count={torch.cuda.device_count()} torch={torch.__version__} "
           f"cuda={torch.version.cuda}")
     print(smi)
-    return name
+    return name, smi
 
 
 def phase_build() -> None:
@@ -281,6 +306,15 @@ def phase_kernels() -> dict:
     t = timings(lambda: flash_attention(q, k, v), lambda: ref.mha_reference(q, k, v),
                 lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
     results["flash_attention"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)
+    # the training path's shape (phase 6): fp32 takes the CUDA-core kernel, bf16 the tensor-core one
+    B, T, H, K, hd = grad_check.TRAIN_SHAPE
+    train_rng = np.random.default_rng(1)  # the later checks keep their inputs
+    for dtype in (torch.float32, torch.bfloat16):
+        q = randn(train_rng, (B, T, H, hd), dtype)
+        k, v = randn(train_rng, (B, T, K, hd), dtype), randn(train_rng, (B, T, K, hd), dtype)
+        err = check(f"flash training shape {B},{T},{H},{K},{hd} causal {dtype}", flash_attention(q, k, v),
+                    ref.mha_reference(q, k, v), TOL[dtype])
+        results["flash_attention"][f"max_abs_err_training_{str(dtype)[6:]}"] = err
 
     # decode at the serving shapes: B=1, H=32, K=8, hd=128, page 64, a 256-slot cache
     H, K, hd, page, S = 32, 8, 128, 64, 256
@@ -742,11 +776,175 @@ def phase_serve() -> dict:
                                               ("recurrentgemma-9b", 2048, 2112))}
 
 
+class MemoryKV:
+    """An in-memory stand-in for a ``KVStore`` (the port has no storage
+    engine, and the card's machine has none it may import): the sorted
+    ``put``/``get``/``multi_get``/``delete``/``delete_range``/``range``/
+    ``flush``/``stats``/``close`` surface that ``BVCheckpointStore`` uses,
+    with nothing durable. ``close`` keeps the data, so a new trainer can
+    resume from the same object as from a reopened store."""
+
+    def __init__(self):
+        self._data: dict[bytes, bytes] = {}
+        self._keys: list[bytes] = []
+
+    def put(self, key: bytes, value: bytes) -> None:
+        if key not in self._data:
+            bisect.insort(self._keys, key)
+        self._data[key] = bytes(value)
+
+    def get(self, key: bytes):
+        return self._data.get(key)
+
+    def multi_get(self, keys):
+        return [self._data.get(k) for k in keys]
+
+    def delete(self, key: bytes) -> None:
+        if self._data.pop(key, None) is not None:
+            self._keys.remove(key)
+
+    def delete_range(self, start: bytes, end: bytes) -> None:
+        lo, hi = bisect.bisect_left(self._keys, start), bisect.bisect_left(self._keys, end)
+        for k in self._keys[lo:hi]:
+            del self._data[k]
+        del self._keys[lo:hi]
+
+    def range(self, start: bytes, end: bytes | None = None):
+        lo = bisect.bisect_left(self._keys, start)
+        hi = len(self._keys) if end is None else bisect.bisect_left(self._keys, end)
+        return [(k, self._data[k]) for k in self._keys[lo:hi]]
+
+    def flush(self) -> None:
+        pass
+
+    def stats(self) -> dict:
+        return {"keys": len(self._keys), "bytes": sum(map(len, self._data.values()))}
+
+    def close(self) -> None:
+        pass
+
+
+def phase_grad_check(dtype: str) -> dict:
+    """Gradients of qwen3-4b at full width, 2 layers, fp32 masters, compute
+    in ``dtype``, one TokenPipeline batch (B 2, T 512): the card (the flash
+    kernel forward, ``ops.Attention``'s backward; remat) against the CPU (the
+    jnp-body port under autograd), weights drawn on the card and copied to
+    the CPU (``launch/grad_check.py``). Gated in both dtypes at
+    ``grad_check.GRAD_RTOL``, every leaf's gradient nonzero on both sides."""
+    t0 = time.perf_counter()
+    r = grad_check.run(dtype)
+    tol, ok = grad_check.GRAD_RTOL[dtype], grad_check.passes(r, dtype)
+    print(f"[6a gradient check] qwen3-4b full width, 2 layers, fp32 masters, {dtype} compute, B 2 T 512: "
+          f"loss card {r['loss_card']:.6f} cpu {r['loss_cpu']:.6f} |d| {r['loss_abs_err']:.3e}, worst leaf "
+          f"{r['worst_leaf']} max|dg|/max|g| {r['worst_rel_err']:.3e}, leaves with a zero gradient {r['zero']}, "
+          f"tol {tol:.0e} {'ok' if ok else 'FAIL'}, {time.perf_counter() - t0:.1f} s")
+    if not ok:
+        raise AssertionError(f"gradient check {dtype}: {r}")
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_train_full(smi: str) -> dict:
+    """qwen3-4b at full width and depth, fp32 masters, bf16 compute, AdamW,
+    remat, global batch 4 × 512 in 2 microbatches, 4 steps. Returns the
+    flash launches of those steps."""
+    cfg = get_config("qwen3-4b")
+    B, T, A, steps = 4, 512, 2, 4
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, "cuda")
+    opt = OptimizerConfig(warmup_steps=2, total_steps=100)
+    state = init_state(model, torch.Generator(device="cuda").manual_seed(0), opt)
+    n_params = sum(p.numel() for p in model.parameters())
+    step_fn = make_train_step(model, TrainConfig(opt=opt, accum_steps=A, remat=True))
+    pipe = TokenPipeline(cfg.vocab, B, T, seed=0)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in pipe.next_batch().items()} for _ in range(steps)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    losses, ms = [], []
+    for batch in batches:
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(metrics["loss"]))
+    launches = {k: fn.launches for k, fn in WRAPPERS.items()}
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    print(f"[6b train] qwen3-4b {cfg.n_layers} layers d_model {cfg.d_model}, {n_params} parameters, fp32 masters, "
+          f"bf16 compute, AdamW, remat, global batch {B} x {T} in {A} microbatches: losses {losses}, "
+          f"grad_norm {float(metrics['grad_norm']):.4f}, step ms {['%.1f' % t for t in ms]}, steps 2-{steps} "
+          f"{step_ms:.1f} ms, {B * T / step_ms * 1e3:.1f} training tokens/s, peak allocated {peak / 1e9:.2f} GB, "
+          f"reserved {reserved / 1e9:.2f} GB (limit {MEMORY_LIMIT / 1e9:.0f} GB), set-up {setup_s:.1f} s, "
+          f"launches {launches} [{smi}]")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"a training loss is not finite: {losses}")
+    expect = {k: 0 for k in WRAPPERS}
+    expect["flash_attention"] = cfg.n_layers * 2 * A * steps  # forward and remat recompute, per microbatch
+    if launches != expect:
+        raise AssertionError(f"training launches {launches} != {expect}")
+    if max(peak, reserved) >= MEMORY_LIMIT:
+        raise AssertionError(f"peak memory {max(peak, reserved)} B is not under {MEMORY_LIMIT} B")
+    del model, state, step_fn, batches
+    torch.cuda.empty_cache()
+    return {"flash_attention": launches["flash_attention"]}
+
+
+def resume_check() -> int:
+    """Phase 6c, in its own process (``chip_smoke.py --resume-check``, with
+    CUBLAS_WORKSPACE_CONFIG set before cuBLAS starts): the trainer of
+    ``launch/train.py`` on qwen3-4b at full width and 1 layer under
+    deterministic algorithms, checkpointing into a MemoryKV: 4 steps straight
+    against 2 steps, then a new trainer resuming from the store for 2 more.
+    Prints one JSON line; exits non-zero unless every leaf is bit-equal."""
+    torch.use_deterministic_algorithms(True)
+    cfg = dataclasses.replace(get_config("qwen3-4b"), n_layers=1)
+    t0 = time.perf_counter()
+
+    def trainer_run(store, steps):
+        tcfg = train.build(steps=steps, batch=2, seq=512, ckpt_interval=100)
+        trainer, res = train.run(cfg, tcfg, store)
+        out = {path: t.detach().cpu() for path, t in leaves_with_paths(trainer.state)}
+        stall = trainer.ckpt.stall_seconds
+        trainer.close()
+        return res, out, stall
+
+    full, full_state, _ = trainer_run(MemoryKV(), 4)
+    kv = MemoryKV()
+    half, _, stall = trainer_run(kv, 2)
+    resumed, resumed_state, _ = trainer_run(kv, 4)
+    differ = [p for p in full_state if not torch.equal(full_state[p], resumed_state[p])]
+    losses = [m["loss"] for m in full["metrics"]]
+    out = {"resume_bit_equal": not differ and full_state.keys() == resumed_state.keys(), "differ": differ,
+           "losses": losses, "resumed_losses": [m["loss"] for m in half["metrics"] + resumed["metrics"]],
+           "resumed_steps": [m["step"] for m in resumed["metrics"]], "leaves": len(full_state),
+           "store": kv.stats(), "stall_s": stall, "seconds": time.perf_counter() - t0}
+    print("RESUME " + json.dumps(out))
+    ok = out["resume_bit_equal"] and out["resumed_steps"] == [3, 4] and all(np.isfinite(losses))
+    return 0 if ok else 1
+
+
+def phase_resume() -> dict:
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--resume-check"], capture_output=True,
+                         text=True, env=env, timeout=600)
+    line = next((ln for ln in res.stdout.splitlines() if ln.startswith("RESUME ")), None)
+    out = json.loads(line[len("RESUME "):]) if line else {}
+    print(f"[6c resume] qwen3-4b full width, 1 layer, batch 2 x 512, deterministic algorithms, checkpoints in an "
+          f"in-memory stand-in for a KVStore: 4 steps straight vs 2 + a new trainer resuming for 2: {out}")
+    if res.returncode != 0 or not out.get("resume_bit_equal"):
+        raise AssertionError(f"resume check failed (rc {res.returncode}): {res.stderr[-3000:]}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on a card", file=sys.stderr)
         return 1
-    name = phase_device()
+    name, smi = phase_device()
     phase_build()
     results = phase_kernels()
     phase_parity("qwen3-4b", 64)
@@ -756,6 +954,10 @@ def main() -> int:
     phase_bf16_record("mamba2-1.3b", 512)
     phase_bf16_record("recurrentgemma-9b", 2048, n_layers=3)
     by_path = phase_serve()
+    phase_grad_check("float32")
+    phase_grad_check("bfloat16")
+    by_path["qwen3-4b training"] = phase_train_full(smi)
+    phase_resume()
     # a kernel's launches: those of the first path that runs it, whose shapes
     # its top-level times are taken at; every path's count beside them, and
     # the head_dim-256 times with recurrentgemma-9b's count
@@ -776,4 +978,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(resume_check() if sys.argv[1:] == ["--resume-check"] else main())

@@ -5,10 +5,15 @@ run on the tensor cores (``mma.sync``, fp32 accumulation, P rounded to bf16
 before P·V); fp32 inputs on CUDA cores in fp32. q/k/v are read in place
 through their strides, so no pad, fold or transpose happens on the host. CUDA tensors only: :func:`repro_torch.kernels.ops.attention` sends CPU
 tensors to the plain version.
+
+The kernel has no backward. :func:`attention_backward` is its gradient in
+torch ops, which :class:`repro_torch.kernels.ops.Attention` pairs with the
+kernel's forward for training.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -16,6 +21,7 @@ from . import _build
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+NEG_INF = -1e30
 _fn = None
 
 
@@ -86,3 +92,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def attention_backward(q, k, v, do, *, causal: bool = True, window: int | None = None,
+                       q_chunk: int = 2048):
+    """(dq, dk, dv) of ``softmax(Q·Kᵀ·s)·V`` at ``do``, in torch ops, as XLA
+    differentiates the reference's jnp body
+    (``repro/models/attention.py::full_attention``): q is scaled in its own
+    dtype, the scores and softmax are fp32, and P is rounded to v's dtype
+    before P·V, so dV = round(P)ᵀ·dO. Then dP = dO·Vᵀ,
+    dS = P ⊙ (dP − rowsum(dP ⊙ P)), dQ = dS·K·s and dK = dSᵀ·(Q·s), summed
+    over each kv head's query group. P is recomputed from q and k for
+    ``q_chunk`` query rows at a time, so the memory is O(q_chunk·S). Works on
+    any device; the gradients come back in the inputs' dtypes."""
+    B, T, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(D)
+    qs = q.reshape(B, T, K, G, D) * scale
+    dog = do.reshape(B, T, K, G, D)
+    kf, vf = k.float(), v.float()
+    k_pos = torch.arange(S, device=q.device)
+    dq = torch.empty((B, T, K, G, D), dtype=q.dtype, device=q.device)
+    dk = torch.zeros((B, S, K, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((B, S, K, D), dtype=torch.float32, device=q.device)
+    for q0 in range(0, T, q_chunk):
+        qc, doc = qs[:, q0:q0 + q_chunk].float(), dog[:, q0:q0 + q_chunk].float()
+        q_pos = q0 + torch.arange(qc.shape[1], device=q.device)
+        mask = torch.ones((q_pos.shape[0], S), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window is not None:
+            mask &= q_pos[:, None] - k_pos[None, :] < window
+        s = torch.einsum("btkgd,bskd->bkgts", qc, kf)
+        p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+        dv += torch.einsum("bkgts,btkgd->bskd", p.to(v.dtype).float(), doc)
+        dp = torch.einsum("btkgd,bskd->bkgts", doc, vf)
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        dq[:, q0:q0 + q_chunk] = (torch.einsum("bkgts,bskd->btkgd", ds, kf) * scale).to(q.dtype)
+        dk += torch.einsum("bkgts,btkgd->bskd", ds, qc)
+    return dq.reshape(B, T, H, D), dk.to(k.dtype), dv.to(v.dtype)
+

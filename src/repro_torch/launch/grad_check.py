@@ -1,0 +1,188 @@
+"""Gradients of qwen3-4b on the card against the CPU, and what planted faults
+in the bf16 flash kernel read there.
+
+    PYTHONPATH=src python -m repro_torch.launch.grad_check            # fp32 and bf16 readings
+    PYTHONPATH=src python -m repro_torch.launch.grad_check --mutants  # and each planted fault's
+
+qwen3-4b at full width cut to 2 layers, fp32 masters, compute in the
+config's dtype, one TokenPipeline batch (B 2, T 512). The card runs the flash
+kernel's forward and ``ops.Attention``'s backward (remat); the CPU runs the
+jnp-body port of attention under autograd. Both take one set of weights,
+drawn on the card and copied to the CPU. A reading is the loss |Δ| and, per
+leaf, the max|Δ| of the gradient over that leaf's max|g| on the CPU.
+``chip_smoke.py`` phase 6a gates both at ``GRAD_RTOL`` of the compute dtype,
+with every leaf's gradient nonzero on both sides.
+
+``--mutants`` builds copies of ``csrc/flash_attention.cu`` with one fault
+planted in the bf16 tensor-core kernel each (text substitutions, under
+``build/flash_mutants/``) and prints for each the forward's max|Δ| over its
+bf16 tolerance at the training shape (> 1 fails phase 3) and the bf16
+gradient reading against the same CPU side: the bf16 gate has to sit
+between the sound kernel's reading and theirs. Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import dataclasses
+import subprocess
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels import flash_attention as flash_module
+from repro_torch.models import build_model
+
+# a leaf's max|Δg| over its max|g|, and the loss |Δ|, card against CPU. In
+# bf16 a leaf's gradient is bf16-quantized, so a difference of one ulp at its
+# largest element reads at most 2^-7 = 7.8e-3, under the gate. On an H100 80GB
+# HBM3 (700 W) the sound kernel reads 5.2e-3 (one ulp, leaf mlp.w_up) and the
+# subtlest planted fault (--mutants, softmax scale 1% high) 1.1e-2
+GRAD_RTOL = {"float32": 1e-3, "bfloat16": 1e-2}
+FLASH_BF16_TOL = (2e-2, 1e-2)  # tests/test_kernels.py::_tol, with rtol 1e-2
+TRAIN_SHAPE = (2, 512, 32, 8, 128)  # the training path's flash call: B, T, H, K, hd (causal)
+
+_MMA_KERNEL = "__global__ void __launch_bounds__(NTM) flash_fwd_mma_kernel("
+MUTANTS = {  # name: (old, new), substituted once in the bf16 tensor-core kernel
+    "batch 1 reads batch 0's keys": ("ksrc = k + b * ks.b + s * ks.s", "ksrc = k + s * ks.s"),
+    "last key tile dropped": ("(kv_end - kv_begin + BCM - 1) / BCM", "(kv_end - kv_begin - 1) / BCM"),
+    "no rescale on a new row max": ("const float alpha = exp2f(m_run[hr] - m_new);",
+                                    "const float alpha = 1.f;"),
+    "softmax scale 1% high": ("const float scale_log2 = sm_scale *", "const float scale_log2 = 1.01f * sm_scale *"),
+}
+
+
+def models(dtype: str, n_layers: int = 2):
+    cfg = dataclasses.replace(get_config("qwen3-4b"), n_layers=n_layers, dtype=dtype)
+    gpu = build_model(cfg, "cuda").init(torch.Generator(device="cuda").manual_seed(0)).requires_grad_()
+    cpu = build_model(cfg, "cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    return cfg, gpu, cpu.requires_grad_()
+
+
+def batch(cfg, B: int = 2, T: int = 512) -> dict:
+    return {k: torch.from_numpy(v) for k, v in TokenPipeline(cfg.vocab, B, T, seed=0).next_batch().items()}
+
+
+def gradients(model, data: dict) -> tuple[float, dict]:
+    """The loss and every parameter's gradient (on the host), from zero."""
+    dev = next(model.parameters()).device
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = model.loss({k: v.to(dev) for k, v in data.items()})
+    loss.backward()
+    return loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+
+def compare(card: tuple[float, dict], cpu: tuple[float, dict]) -> dict:
+    (lg, gg), (lc, gc) = card, cpu
+    worst, zero = ("", 0.0), []
+    for name, c in gc.items():
+        g, scale = gg[name], c.abs().max().item()
+        if scale == 0 or g.abs().max().item() == 0:
+            zero.append(name)
+        rel = (g - c).abs().max().item() / scale if scale else float("inf")
+        worst = max(worst, (name, rel), key=lambda e: e[1])
+    return {"loss_card": lg, "loss_cpu": lc, "loss_abs_err": abs(lg - lc), "worst_leaf": worst[0],
+            "worst_rel_err": worst[1], "zero": zero}
+
+
+def passes(reading: dict, dtype: str) -> bool:
+    tol = GRAD_RTOL[dtype]
+    return not reading["zero"] and reading["loss_abs_err"] <= tol and reading["worst_rel_err"] <= tol
+
+
+def run(dtype: str) -> dict:
+    """One reading, card against CPU, with the flash library as built."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, gpu, cpu = models(dtype)
+    data = batch(cfg)
+    return compare(gradients(gpu, data), gradients(cpu, data))
+
+
+def forward_spread(seed: int = 0) -> float:
+    """max |flash − plain| / (atol + rtol·|plain|) at the training shape in bf16."""
+    B, T, H, K, hd = TRAIN_SHAPE
+    rng = np.random.default_rng(seed)
+
+    def randn(shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(torch.bfloat16)
+
+    q, k, v = randn((B, T, H, hd)), randn((B, T, K, hd)), randn((B, T, K, hd))
+    out, want = flash_module.flash_attention(q, k, v).float(), ref.mha_reference(q, k, v).float()
+    atol, rtol = FLASH_BF16_TOL
+    return float(((out - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def build_mutants() -> dict[str, ctypes.CDLL]:
+    """One library per mutant, one ``nvcc`` each, all started together."""
+    src = (_build.CSRC / _build.SOURCES["flash_attention"]).read_text()
+    head, tail = src.split(_MMA_KERNEL)
+    out = _build.BUILD_DIR / "flash_mutants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, (old, new)) in enumerate(MUTANTS.items()):
+        if tail.count(old) != 1:
+            raise RuntimeError(f"mutant {name!r}: {old!r} is not once in the tensor-core kernel")
+        cu, so = out / f"m{i}.cu", out / f"m{i}.so"
+        cu.write_text(head + _MMA_KERNEL + tail.replace(old, new))
+        procs[name] = (subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate(timeout=_build.BUILD_TIMEOUT_S)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for mutant {name!r}:\n{log}")
+        libs[name] = ctypes.CDLL(str(so))
+    return libs
+
+
+def _use(lib: ctypes.CDLL) -> None:
+    _build._loaded["flash_attention"] = lib
+    flash_module._fn = None
+
+
+def mutants() -> list[dict]:
+    """The sound kernel's and each mutant's bf16 readings, against one CPU side."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    libs = {"as built": _build.library("flash_attention"), **build_mutants()}
+    cfg, gpu, cpu = models("bfloat16")
+    data = batch(cfg)
+    cpu_side = gradients(cpu, data)
+    rows = []
+    try:
+        for name, lib in libs.items():
+            _use(lib)
+            row = {"kernel": name, "forward_spread": forward_spread(),
+                   **compare(gradients(gpu, data), cpu_side)}
+            row["gate"] = "pass" if passes(row, "bfloat16") else "fail"
+            print(f"{name:30s} forward max|d|/tol {row['forward_spread']:.4g}, loss |d| "
+                  f"{row['loss_abs_err']:.4g}, worst leaf {row['worst_leaf']} {row['worst_rel_err']:.4g}, "
+                  f"zero {row['zero']}, bf16 gradient gate {GRAD_RTOL['bfloat16']:.0e}: {row['gate']}", flush=True)
+            rows.append(row)
+    finally:
+        _use(libs["as built"])
+    return rows
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--mutants", action="store_true", help="also read each planted flash fault")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("grad_check needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(f"[{smi}]")
+    for dtype in ("float32", "bfloat16"):
+        r = run(dtype)
+        print(f"{dtype}: {r} tol {GRAD_RTOL[dtype]:.0e} {'ok' if passes(r, dtype) else 'FAIL'}", flush=True)
+    if args.mutants:
+        mutants()
+
+
+if __name__ == "__main__":
+    main()

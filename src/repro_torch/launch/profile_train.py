@@ -1,0 +1,122 @@
+"""Where a training step's time goes on the card: ``torch.profiler`` over one
+train step of a model at full width, after a warm-up step.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_train --arch qwen3-4b \
+        --batch 4 --seq 512 --accum 2
+
+fp32 masters, ``cfg.dtype`` compute, AdamW, remat, random weights from seed
+0 and TokenPipeline batches. Prints the step's wall time (timed once without
+the profiler, then run again under it), the device's busy time (the sum of
+its kernel and copy times: one stream, so they do not overlap) and busy
+share, the device time by kernel group (as ``profile_serve``) and by part
+of the step: the kernels launched inside the optimizer update, the gradient
+clip, the attention backward (``ops.Attention``'s torch ops) and the loss's
+forward (the recompute in the backward is outside it). The last line is the
+same as one JSON object. Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.launch.profile_serve import group_of
+from repro_torch.models import build_model
+from repro_torch.training import train_step as train_step_module
+from repro_torch.training.optimizer import OptimizerConfig
+from repro_torch.training.train_step import TrainConfig, init_state, make_train_step
+
+PARTS = {  # part of the step: (module, function) whose launches it covers
+    "optimizer update": (train_step_module, "opt_update"),
+    "gradient clip": (train_step_module, "clip_by_global_norm"),
+    "attention backward": (ops, "attention_backward"),
+}
+
+
+def _annotated(name, fn):
+    def wrapper(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+def main(argv: list[str] | None = None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--layers", type=int, default=0, help="cut the depth (0: the config's)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--accum", type=int, default=2)
+    args = ap.parse_args(argv)
+
+    dev = resolve_device("cuda")
+    cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    model = build_model(cfg, dev)
+    opt = OptimizerConfig(warmup_steps=2, total_steps=100)
+    state = init_state(model, torch.Generator(device=dev).manual_seed(0), opt)
+    pipe = TokenPipeline(cfg.vocab, args.batch, args.seq, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()} for _ in range(3)]
+    for name, (module, attr) in PARTS.items():
+        setattr(module, attr, _annotated(name, getattr(module, attr)))
+    loss = model.loss
+    model.loss = _annotated("loss forward", loss)
+    step = make_train_step(model, TrainConfig(opt=opt, accum_steps=args.accum))
+    state, _ = step(state, batches[0])  # warm-up: kernel builds, cuBLAS, allocator, gradient buffers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state, batches[1])  # the step without the profiler
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[2])
+        torch.cuda.synchronize()
+        wall_profiled = time.perf_counter() - t0
+
+    by_group: dict[str, float] = defaultdict(float)
+    kernels = []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name not in PARTS and e.name != "loss forward":
+            us = e.time_range.elapsed_us()
+            by_group[group_of(e.name)] += us
+            kernels.append((e.time_range.start, e.time_range.end, us))
+    # a part's device time: the kernels that run inside its ranges on the device
+    ranges = defaultdict(list)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and (e.name in PARTS or e.name == "loss forward"):
+            ranges[e.name].append((e.time_range.start, e.time_range.end))
+    by_part = {name: sum(us for s, _, us in kernels if any(a <= s < b for a, b in spans)) / 1e3
+               for name, spans in ranges.items()}
+    busy = sum(by_group.values()) / 1e6
+    out = {
+        "device": torch.cuda.get_device_name(0), "arch": cfg.name, "layers": cfg.n_layers,
+        "batch": args.batch, "seq": args.seq, "accum": args.accum, "loss": float(metrics["loss"]),
+        "wall_s": wall, "wall_profiled_s": wall_profiled, "device_busy_s": busy, "busy_share": busy / wall,
+        "groups_ms": {g: v / 1e3 for g, v in sorted(by_group.items(), key=lambda kv: -kv[1])},
+        "parts_ms": by_part,
+        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print(f"train step: {wall:.3f} s wall ({wall_profiled:.3f} s profiled), device busy {busy:.3f} s "
+          f"({100 * busy / wall:.1f}%), {args.batch} x {args.seq} tokens in {args.accum} microbatches")
+    for g, v in out["groups_ms"].items():
+        print(f"  {g:24s} {v:10.3f} ms")
+    for g, v in by_part.items():
+        print(f"  part: {g:18s} {v:10.3f} ms")
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,10 @@
 """Grouped-query attention: train/prefill (optionally chunked + windowed) and
 single-token decode against a KV cache.
 
-On CPU tensors each function is a faithful port of the reference's jnp body.
-On CUDA tensors, :func:`full_attention` runs the flash kernel and
+On CPU tensors each function is a faithful port of the reference's jnp body,
+and autograd differentiates it. On CUDA tensors, :func:`full_attention` runs
+the flash kernel through :class:`repro_torch.kernels.ops.Attention` (whose
+backward is the same gradient written out in torch ops), and
 :func:`decode_attention` runs the paged-decode kernel over an identity-page
 view of the contiguous cache (a view, not a copy).
 
@@ -42,9 +44,10 @@ def full_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                    q_chunk: int = 2048) -> torch.Tensor:
     """Exact attention. q (B,T,H,D) → (B,T,H,D). On the CPU it is chunked over
     query blocks so peak memory is O(T·q_chunk); the CUDA kernel keeps only
-    one tile of scores on chip, whatever T."""
+    one tile of scores on chip, whatever T, and its backward recomputes the
+    scores ``q_chunk`` query rows at a time."""
     if q.is_cuda:
-        return ops.attention(q, k, v, causal=causal, window=window)
+        return ops.Attention.apply(q, k, v, causal, window, q_chunk)
     B, T, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
     G = H // K

@@ -118,3 +118,67 @@ def logits_from_hidden(x: torch.Tensor, out_emb: torch.Tensor, vocab: int) -> to
     if V != vocab:
         logits[..., vocab:] = -1e30
     return logits
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None):
+    """logits (B,T,V) fp32; labels (B,T) int. Returns (loss, metrics) with
+    metrics ``{loss, accuracy, tokens}``, as the reference: the max is held
+    out of the gradient, and the label logit is taken by a masked reduction
+    over the vocabulary."""
+    V = logits.shape[-1]
+    mx = logits.max(dim=-1, keepdim=True).values.detach()
+    lse = torch.log(torch.exp(logits - mx).sum(dim=-1)) + mx[..., 0]
+    onehot = labels[..., None] == torch.arange(V, device=logits.device)
+    label_logit = torch.where(onehot, logits, 0.0).sum(dim=-1)
+    nll = lse - label_logit
+    mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    acc = ((logits.argmax(dim=-1) == labels) * mask).sum() / denom
+    return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
+
+
+# ---------------------------------------------------------------------------
+# per-layer views of stacked parameters
+# ---------------------------------------------------------------------------
+
+class _LayerSlice(torch.autograd.Function):
+    """``p[l]`` whose gradient is added into ``p.grad[l]`` in place (the
+    buffer is made zero on first use); autograd itself carries no gradient
+    to ``p``."""
+
+    @staticmethod
+    def forward(ctx, p, l):
+        ctx.p, ctx.l = p, l
+        return p[l]
+
+    @staticmethod
+    def backward(ctx, g):
+        p = ctx.p
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        p.grad[ctx.l] += g
+        return None, None
+
+
+def layer_view(p: torch.Tensor, l: int) -> torch.Tensor:
+    """``p[l]``: layer ``l`` of a stacked ``(L, …)`` parameter. When autograd
+    records it, its gradient is added into ``p.grad[l]`` in place, and the
+    caller takes the view just before running layer ``l``: autograd runs the
+    newest ready node first, so the view's node then runs right after that
+    layer's backward. Plain ``p[l]`` writes a zero tensor of p's full shape
+    per layer (O(L²) in the backward), and ``p.unbind(0)`` (or views taken
+    before the first layer) holds every layer's gradient until layer 0's
+    backward is done: a second copy of the stacked gradients, 14.5 GB of
+    fp32 for qwen3-4b.
+
+    So a stacked parameter is trained through ``.backward()`` only:
+    autograd carries no gradient to ``p`` itself, and
+    ``torch.autograd.grad(loss, p)``, tensor hooks on ``p`` and its
+    post-accumulate-grad hooks see none. The memory gain rests on the
+    engine's order of ready nodes; ``test_stacked_gradients_land_layer_by_layer``
+    pins it on the CPU and its ``_on_card`` twin in ``tests/test_torch_gpu.py``
+    on CUDA."""
+    if torch.is_grad_enabled() and p.requires_grad:
+        return _LayerSlice.apply(p, l)
+    return p[l]

@@ -19,10 +19,19 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from .common import embed_tokens, init_truncated_normal_, logits_from_hidden, rmsnorm, softplus
+from .common import (
+    embed_tokens,
+    init_truncated_normal_,
+    layer_view,
+    logits_from_hidden,
+    rmsnorm,
+    softmax_cross_entropy,
+    softplus,
+)
 
 NEG_INF = -1e30
 CACHE_DTYPE = torch.bfloat16  # the conv cache is bf16 whatever the compute dtype, as in the reference
@@ -119,7 +128,9 @@ class Mamba2LM(nn.Module):
     """Parameters are created zero-filled on ``device`` in ``param_dtype``;
     :meth:`init` draws them, or ``load_state_dict`` loads a converted tree.
     Computation runs in ``cfg.dtype``. The layers run in a Python loop over
-    slices of the stacked tensors. This module serves: no grad."""
+    per-layer views of the stacked tensors. Parameters do not require grad
+    until ``requires_grad_()`` is called; on CUDA the SSD kernels have no
+    backward, so the model trains on the CPU only."""
 
     def __init__(self, cfg, device=None, param_dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -181,7 +192,7 @@ class Mamba2LM(nn.Module):
         return self
 
     def _layer_params(self, l: int) -> dict:
-        return {k: getattr(self, k)[l] for k in LAYER_PARAMS}
+        return {k: layer_view(getattr(self, k), l) for k in LAYER_PARAMS}
 
     def _out_embed(self) -> torch.Tensor:
         return self.embed if self.cfg.tie_embeddings else self.out_embed
@@ -245,12 +256,24 @@ class Mamba2LM(nn.Module):
         return logits_from_hidden(x, self._out_embed(), self.cfg.vocab)
 
     # -- public api ---------------------------------------------------------
-    def forward(self, tokens):
-        """tokens (B,T) → (fp32 logits (B,T,V), aux loss 0)."""
+    def forward(self, tokens, *, remat: bool = False):
+        """tokens (B,T) → (fp32 logits (B,T,V), aux loss 0). ``remat`` runs
+        each layer's forward again in the backward."""
         x = embed_tokens(self.embed, tokens, self.compute_dtype)
         for l in range(self.cfg.n_layers):
-            x, _, _ = self._layer(self._layer_params(l), x)
+            lp = self._layer_params(l)
+            if remat:
+                x = checkpoint(lambda lp, x: self._layer(lp, x)[0], lp, x, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x, _, _ = self._layer(lp, x)
         return self._head(x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def loss(self, batch: dict, *, remat: bool = True, q_chunk: int = 0):
+        """(loss, metrics) of the next-token labels, as the reference's
+        ``loss``; ``q_chunk`` is unused (no attention)."""
+        logits, _ = self.forward(batch["tokens"], remat=remat)
+        return softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         """Conv tails (L,B,k-1,conv_dim) bf16 and SSD states (L,B,nh,p,n)

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -34,10 +35,12 @@ from .common import (
     embed_tokens,
     gelu_tanh,
     init_truncated_normal_,
+    layer_view,
     logits_from_hidden,
     rmsnorm,
     rope_tables,
     sigmoid,
+    softmax_cross_entropy,
     softplus,
 )
 from .transformer import apply_mlp, attn_params, init_attn_, init_mlp_, mlp_params, qkv
@@ -116,15 +119,18 @@ class _Slot(nn.Module):
 
     def layer(self, g: int) -> dict:
         """The parameters of the slot's ``g``-th layer (views)."""
-        return {"ln1": self.ln1[g], "ln2": self.ln2[g], "mix": {k: v[g] for k, v in self.mix.items()},
-                "mlp": {k: v[g] for k, v in self.mlp.items()}}
+        return {"ln1": layer_view(self.ln1, g), "ln2": layer_view(self.ln2, g),
+                "mix": {k: layer_view(v, g) for k, v in self.mix.items()},
+                "mlp": {k: layer_view(v, g) for k, v in self.mlp.items()}}
 
 
 class GriffinLM(nn.Module):
     """Parameters are created zero-filled on ``device`` in ``param_dtype``;
     :meth:`init` draws them, or ``load_state_dict`` loads a converted tree.
     Computation runs in ``cfg.dtype``. The layers run in a Python loop, group
-    by group, then the remainder. This module serves: no grad."""
+    by group, then the remainder. Parameters do not require grad until
+    ``requires_grad_()`` is called; on CUDA the RG-LRU kernel has no
+    backward, so the model trains on the CPU only."""
 
     def __init__(self, cfg, device=None, param_dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -245,21 +251,31 @@ class GriffinLM(nn.Module):
         x = rmsnorm(x, self.ln_f, self.cfg.rms_eps)
         return logits_from_hidden(x, self._out_embed(), self.cfg.vocab)
 
-    def _run(self, tokens, cache=None, pos=None):
+    def _run(self, tokens, cache=None, pos=None, remat=False):
         cfg = self.cfg
         T = tokens.shape[1]
         x = embed_tokens(self.embed, tokens, self.compute_dtype)
         positions = torch.arange(T, device=tokens.device) if pos is None else torch.tensor([pos], device=tokens.device)
         sin, cos = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
         for kind, lp, lc in self._layers(cache):
-            x = self._layer(kind, lp, x, sin, cos, lc, pos)
+            if remat:  # nothing saved inside a layer: its forward runs again in the backward
+                x = checkpoint(self._layer, kind, lp, x, sin, cos, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = self._layer(kind, lp, x, sin, cos, lc, pos)
         return x
 
     # -- public api ---------------------------------------------------------
-    def forward(self, tokens):
-        """tokens (B,T) → (fp32 logits (B,T,V), aux loss 0)."""
-        x = self._run(tokens)
+    def forward(self, tokens, *, remat: bool = False):
+        """tokens (B,T) → (fp32 logits (B,T,V), aux loss 0). ``remat`` runs
+        each layer's forward again in the backward."""
+        x = self._run(tokens, remat=remat)
         return self._head(x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def loss(self, batch: dict, *, remat: bool = True, q_chunk: int = 0):
+        """(loss, metrics) of the next-token labels, as the reference's
+        ``loss``; ``q_chunk`` is unused (the reference's is too)."""
+        logits, _ = self.forward(batch["tokens"], remat=remat)
+        return softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
 
     def _slot_cache(self, kind: str, lead: tuple, batch: int) -> dict:
         cfg = self.cfg

@@ -9,12 +9,18 @@ Parameters keep the reference's layout: a leading ``L`` axis on every
 per-layer tensor and the same key paths (``state_dict`` key ``attn.wq`` is
 the reference's ``['attn']['wq']``), so :mod:`repro_torch.convert` moves
 parameter trees between the packages. The layers run in a Python loop over
-slices of the stacked tensors.
+per-layer views of the stacked tensors (:func:`.common.layer_view`).
+
+Training: ``model.requires_grad_()`` makes the parameters trainable (they
+are created without grad, for serving), and :meth:`TransformerLM.loss`
+recomputes each layer in the backward (``remat``), as the reference's
+``nothing_saveable`` policy.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from . import attention as attn_lib
@@ -23,10 +29,12 @@ from .common import (
     embed_tokens,
     glu_activation,
     init_truncated_normal_,
+    layer_view,
     logits_from_hidden,
     norm,
     rmsnorm,
     rope_tables,
+    softmax_cross_entropy,
 )
 
 CACHE_DTYPE = torch.bfloat16  # the KV cache is bf16 whatever the compute dtype, as in the reference
@@ -105,8 +113,8 @@ def qkv(lp: dict, h: torch.Tensor, cfg, sin, cos):
 class TransformerLM(nn.Module):
     """Parameters are created zero-filled on ``device`` in ``param_dtype``;
     :meth:`init` draws them, or ``load_state_dict`` loads a converted tree.
-    Computation runs in ``cfg.dtype``. Parameters do not require grad: this
-    module serves."""
+    Computation runs in ``cfg.dtype``. Parameters do not require grad until
+    ``requires_grad_()`` is called on the module."""
 
     def __init__(self, cfg, device=None, param_dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -162,10 +170,10 @@ class TransformerLM(nn.Module):
         return self
 
     def _layer(self, l: int) -> dict:
-        lp = {"ln1": self.ln1[l], "attn": {k: v[l] for k, v in self.attn.items()},
-              "mlp": {k: v[l] for k, v in self.mlp.items()}}
+        lp = {"ln1": layer_view(self.ln1, l), "attn": {k: layer_view(v, l) for k, v in self.attn.items()},
+              "mlp": {k: layer_view(v, l) for k, v in self.mlp.items()}}
         if not self.cfg.parallel_block:
-            lp["ln2"] = self.ln2[l]
+            lp["ln2"] = layer_view(self.ln2, l)
         return lp
 
     def _out_embed(self) -> torch.Tensor:
@@ -180,11 +188,20 @@ class TransformerLM(nn.Module):
         h2 = norm(x, lp["ln2"], cfg.rms_eps, cfg.norm_type)
         return x + apply_mlp(lp["mlp"], h2, cfg)
 
+    def _block(self, lp, x, sin, cos, q_chunk):
+        """One layer over the whole sequence: (x, k, v)."""
+        B, T, _ = x.shape
+        h = norm(x, lp["ln1"], self.cfg.rms_eps, self.cfg.norm_type)
+        q, k, v = qkv(lp["attn"], h, self.cfg, sin, cos)
+        ao = attn_lib.full_attention(q, k, v, causal=True, q_chunk=q_chunk)
+        ao = ao.reshape(B, T, -1) @ lp["attn"]["wo"].to(x.dtype)
+        return self._block_tail(lp, x, h, ao), k, v
+
     # -- forward (prefill) -----------------------------------------------------
-    def _trunk(self, tokens, vision_embeds, q_chunk, kv_sink=None):
+    def _trunk(self, tokens, vision_embeds, q_chunk, kv_sink=None, remat=False):
         cfg = self.cfg
         dtype = self.compute_dtype
-        B, T = tokens.shape
+        T = tokens.shape[1]
         x = embed_tokens(self.embed, tokens, dtype)
         if vision_embeds is not None:
             x[:, : vision_embeds.shape[1]] = vision_embeds.to(dtype)
@@ -193,26 +210,35 @@ class TransformerLM(nn.Module):
         sin, cos = rope_tables(torch.arange(T, device=tokens.device), cfg.resolved_head_dim, cfg.rope_theta)
         for l in range(cfg.n_layers):
             lp = self._layer(l)
-            h = norm(x, lp["ln1"], cfg.rms_eps, cfg.norm_type)
-            q, k, v = qkv(lp["attn"], h, cfg, sin, cos)
-            ao = attn_lib.full_attention(q, k, v, causal=True, q_chunk=q_chunk)
-            ao = ao.reshape(B, T, -1) @ lp["attn"]["wo"].to(x.dtype)
-            x = self._block_tail(lp, x, h, ao)
+            if remat:  # nothing saved inside a layer: its forward runs again in the backward
+                x, k, v = checkpoint(self._block, lp, x, sin, cos, q_chunk, use_reentrant=False,
+                                     preserve_rng_state=False)
+            else:
+                x, k, v = self._block(lp, x, sin, cos, q_chunk)
             if kv_sink is not None:
                 kv_sink(l, k, v)
         return norm(x, self.ln_f, cfg.rms_eps, cfg.norm_type)
 
-    def hidden_states(self, tokens, vision_embeds=None, *, collect_kv: bool = False, q_chunk: int = 2048):
+    def hidden_states(self, tokens, vision_embeds=None, *, remat: bool = False, collect_kv: bool = False,
+                      q_chunk: int = 2048):
         """Returns (hidden (B,T,d), aux_loss, stacked (k, v) (L,B,T,K,hd) or None)."""
         kvs = []
         x = self._trunk(tokens, vision_embeds, q_chunk,
-                        (lambda l, k, v: kvs.append((k, v))) if collect_kv else None)
+                        (lambda l, k, v: kvs.append((k, v))) if collect_kv else None, remat)
         stacked = (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])) if collect_kv else None
         return x, torch.zeros((), dtype=torch.float32, device=x.device), stacked
 
-    def forward(self, tokens, vision_embeds=None, *, q_chunk: int = 2048):
-        x, aux, _ = self.hidden_states(tokens, vision_embeds, q_chunk=q_chunk)
+    def forward(self, tokens, vision_embeds=None, *, remat: bool = False, q_chunk: int = 2048):
+        x, aux, _ = self.hidden_states(tokens, vision_embeds, remat=remat, q_chunk=q_chunk)
         return logits_from_hidden(x, self._out_embed(), self.cfg.vocab), aux
+
+    def loss(self, batch: dict, *, remat: bool = True, q_chunk: int = 2048):
+        """``batch``: tokens and labels (B,T), optional mask and vision_embeds.
+        Returns (loss, metrics) as the reference's ``loss``."""
+        logits, _ = self.forward(batch["tokens"], batch.get("vision_embeds"), remat=remat, q_chunk=q_chunk)
+        loss, metrics = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+        metrics["loss"] = loss
+        return loss, metrics
 
     # -- serving ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:

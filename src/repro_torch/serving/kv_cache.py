@@ -7,12 +7,17 @@ The mapping onto the paper:
   metadata — tiny, hot, and the only thing the scheduler mutates,
 * allocator free-list = BValue file/offset reservation.
 
-``kernels.ops.paged_decode`` consumes exactly these structures. The host
-page cache and the spill into a key-value store come with the training-state
-slice.
+``kernels.ops.paged_decode`` consumes exactly these structures.
+
+* ``HostPageCache`` = **BVCache**: a fixed-capacity host tier with MRWF
+  admission, LRU eviction and pinning for pages whose write-back is pending,
+* ``PageSpillStore`` = the durable tier below it: pages spill into an
+  injected ``KVStore`` as big values.
 """
 from __future__ import annotations
 
+import io
+from collections import OrderedDict
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -108,3 +113,89 @@ class PagedKVCache:
 
     def utilization(self) -> float:
         return 1.0 - len(self.free) / self.num_pages
+
+
+class HostPageCache:
+    """BVCache for offloaded pages: MRWF admission, LRU eviction, pinning
+    for pages whose host write-back hasn't completed."""
+
+    def __init__(self, capacity_pages: int):
+        self.capacity = capacity_pages
+        self._map: OrderedDict[tuple, tuple[object, bool]] = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def put(self, key: tuple, page, pinned: bool = False) -> None:
+        if key in self._map:
+            self._map.pop(key)
+        self._map[key] = (page, pinned)
+        self._map.move_to_end(key)
+        while len(self._map) > self.capacity:
+            for k in list(self._map):
+                if not self._map[k][1]:
+                    self._map.pop(k)
+                    break
+            else:
+                break  # everything pinned
+
+    def unpin(self, key: tuple) -> None:
+        if key in self._map:
+            page, _ = self._map[key]
+            self._map[key] = (page, False)
+
+    def get(self, key: tuple):
+        hit = self._map.get(key)
+        if hit is None:
+            self.misses += 1
+            return None
+        self.hits += 1
+        self._map.move_to_end(key)
+        return hit[0]
+
+
+class PageSpillStore:
+    """Durable tier below :class:`HostPageCache`: evicted pages spill into an
+    injected ``KVStore`` (a ``DB`` or a ``ShardedDB``; the serving stack
+    does not care). A KV page is the paper's big value, so spills ride the
+    WAL-time separated value path; ``restore_many`` uses the store's batched
+    ``multi_get``.
+
+    Pages are ``.npy`` bytes (``np.save``: dtype and shape, no pickle), as
+    the reference writes them. numpy has no bf16, so a bf16 page is written
+    as opaque 2-byte ``|V2`` elements holding its bits, the format the
+    reference writes for a JAX bf16 array, and every ``|V2`` page is read
+    back as bf16. Pages are torch tensors or numpy arrays; restored pages
+    are CPU tensors."""
+
+    def __init__(self, store, prefix: bytes = b"kvpage/"):
+        self.store = store
+        self.prefix = prefix
+
+    def _key(self, key: tuple) -> bytes:
+        return self.prefix + "/".join(str(p) for p in key).encode()
+
+    def spill(self, key: tuple, page) -> None:
+        if isinstance(page, torch.Tensor):
+            page = page.detach().cpu()
+            if page.dtype == torch.bfloat16:
+                page = page.view(torch.int16).numpy().view("V2")
+            else:
+                page = page.numpy()
+        buf = io.BytesIO()
+        np.save(buf, np.ascontiguousarray(page), allow_pickle=False)
+        self.store.put(self._key(key), buf.getvalue())
+
+    @staticmethod
+    def _decode(raw: bytes) -> torch.Tensor:
+        arr = np.load(io.BytesIO(raw), allow_pickle=False)
+        if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+            return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+        return torch.from_numpy(arr)
+
+    def restore(self, key: tuple) -> torch.Tensor | None:
+        raw = self.store.get(self._key(key))
+        return None if raw is None else self._decode(raw)
+
+    def restore_many(self, keys: list[tuple]) -> list[torch.Tensor | None]:
+        raws = self.store.multi_get([self._key(k) for k in keys])
+        return [None if r is None else self._decode(r) for r in raws]

@@ -1,0 +1,1 @@
+"""Training: optimizers, the train step and the fault-tolerant trainer."""

@@ -1,0 +1,122 @@
+"""Train and serve step builders, and abstract (meta-device) state.
+
+``make_train_step`` returns an eager ``(state, batch) -> (state, metrics)``
+that updates ``state`` in place (the reference's ``jit`` with donation).
+The state is ``{"params", "opt", "step"}``: ``params`` is the model's
+parameter tree (:func:`repro_torch.convert.param_tree`, the ``nn.Parameter``
+objects, fp32 masters), the model casts to ``cfg.dtype`` inside. Gradient
+accumulation sums fp32 gradients over microbatches in the parameters'
+``.grad`` and divides by their number, then the step clips and updates.
+
+``abstract_params``/``abstract_state``/``abstract_cache`` build the same
+trees of meta-device tensors: shapes and dtypes, no memory.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+
+from repro_torch.convert import param_tree
+from repro_torch.models import build_model
+from repro_torch.tree import leaves
+from .optimizer import OptimizerConfig, clip_by_global_norm, opt_init, opt_update
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    opt: OptimizerConfig = field(default_factory=OptimizerConfig)
+    accum_steps: int = 1
+    remat: bool = True
+    q_chunk: int = 2048
+
+
+def init_state(model, generator: torch.Generator | None, opt_cfg: OptimizerConfig) -> dict:
+    """Makes ``model`` trainable and returns its train state. ``generator``
+    draws the parameters (:meth:`init`); None keeps the ones it has (loaded,
+    or about to be restored)."""
+    if generator is not None:
+        model.init(generator)
+    model.requires_grad_(True)
+    params = param_tree(model)
+    return {"params": params, "opt": opt_init(opt_cfg, params), "step": torch.zeros((), dtype=torch.int32)}
+
+
+def make_train_step(model, train_cfg: TrainConfig):
+    opt_cfg = train_cfg.opt
+
+    def backward(batch) -> dict:
+        loss, metrics = model.loss(batch, remat=train_cfg.remat, q_chunk=train_cfg.q_chunk)
+        loss.backward()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def train_step(state: dict, batch: dict):
+        params = leaves(state["params"])
+        for p in params:
+            if p.grad is not None:
+                p.grad.zero_()
+        A = train_cfg.accum_steps
+        if A <= 1:
+            metrics = backward(batch)
+        else:
+            n = batch["tokens"].shape[0] // A
+            loss_sum = 0.0
+            for i in range(A):
+                loss_sum = loss_sum + backward({k: v[i * n:(i + 1) * n] for k, v in batch.items()})["loss"]
+            for p in params:
+                if p.grad is not None:
+                    p.grad.div_(A)
+            metrics = {"loss": loss_sum / A}
+        for p in params:  # a parameter that no loss reaches has a zero gradient
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
+        _, _, lr = opt_update(opt_cfg, grads, state["opt"], params)
+        metrics.update(grad_norm=gnorm, lr=lr)
+        state["step"] = state["step"] + 1
+        return state, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# serve steps
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(model, q_chunk: int = 2048):
+    """``prefill_step(batch) -> (last-token logits, cache)``; the attention
+    models take ``q_chunk`` and ``vision_embeds``."""
+    attends = hasattr(model, "hidden_states")
+
+    @torch.no_grad()
+    def prefill_step(batch: dict):
+        if not attends:
+            return model.prefill(batch["tokens"])
+        return model.prefill(batch["tokens"], batch.get("vision_embeds"), q_chunk=q_chunk)
+
+    return prefill_step
+
+
+def make_decode_step(model):
+    @torch.no_grad()
+    def decode_step(cache: dict, tokens: torch.Tensor):
+        return model.decode_step(cache, tokens)
+
+    return decode_step
+
+
+# ---------------------------------------------------------------------------
+# abstract state (meta device: no allocation)
+# ---------------------------------------------------------------------------
+
+def abstract_params(cfg, dtype: torch.dtype | None = None) -> dict:
+    return param_tree(build_model(cfg, "meta", param_dtype=dtype or torch.float32))
+
+
+def abstract_state(cfg, opt_cfg: OptimizerConfig) -> dict:
+    return init_state(build_model(cfg, "meta"), None, opt_cfg)
+
+
+def abstract_cache(cfg, batch: int, max_len: int) -> dict:
+    return build_model(cfg, "meta").init_cache(batch, max_len)

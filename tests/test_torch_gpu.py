@@ -18,7 +18,10 @@ from repro_torch.kernels.decode_attention import paged_decode_attention, paged_d
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import inter_chunk_scan, ssd_chunked_cuda, ssd_output, ssd_states
+from repro_torch.kernels import ops
 from repro_torch.models import attention, build_model
+from repro_torch.training.optimizer import OptimizerConfig
+from repro_torch.training.train_step import TrainConfig, init_state, make_train_step
 
 torch.set_num_threads(1)
 
@@ -563,3 +566,110 @@ def test_attention_wrappers_replay_in_cuda_graph(cuda, dtype):
     lengths = torch.tensor([0, 300], dtype=torch.int32, device=cuda)
     first, out = _graph_replay(lambda: paged_decode_attention(qd, pk, pv, pt, lengths))
     assert torch.equal(first, out) and (out[0] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# training: the flash kernel's gradient, kernels without one, a train step
+# ---------------------------------------------------------------------------
+
+# (B, T, H, K, hd, window, q_chunk of the card's backward): hd 128 and 256,
+# GQA and MQA, T ragged against the kernel's tiles and the backward's chunks
+ATTN_GRAD_GRID = [(2, 77, 8, 2, 128, None, 32), (1, 200, 32, 8, 128, None, 64), (1, 130, 16, 1, 256, None, 48),
+                  (2, 100, 16, 1, 256, 40, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,T,H,K,hd,window,q_chunk", ATTN_GRAD_GRID)
+def test_attention_gradients_on_card_match_cpu(cuda, B, T, H, K, hd, window, q_chunk, dtype):
+    """``full_attention`` on the card (the flash kernel's forward, the
+    gradient in torch ops through ``ops.Attention``) against the CPU's
+    jnp-body port under autograd, at the same inputs and cotangent."""
+    rng = np.random.default_rng(9)
+    host = [_randn(rng, s, dtype, "cpu") for s in ((B, T, H, hd), (B, T, K, hd), (B, T, K, hd))]
+    w = _randn(rng, (B, T, H, hd), "float32", "cpu")
+    grads = {}
+    for dev, chunk in ((cuda, q_chunk), (torch.device("cpu"), 2048)):
+        q, k, v = (t.to(dev).requires_grad_() for t in host)
+        o = attention.full_attention(q, k, v, causal=True, window=window, q_chunk=chunk)
+        assert o.grad_fn is not None
+        (o.float() * w.to(dev)).sum().backward()
+        grads[dev.type] = [o.detach()] + [t.grad for t in (q, k, v)]
+    for name, got, expect in zip(("o", "dq", "dk", "dv"), grads["cuda"], grads["cpu"]):
+        assert got.dtype == DTYPES[dtype], name
+        _close(expect, got, dtype)
+
+
+@pytest.mark.gpu
+def test_kernels_without_a_gradient_raise_under_grad(cuda):
+    rng = np.random.default_rng(10)
+    x, B_, C_ = (_randn(rng, s, "float32", cuda) for s in ((1, 64, 2, 16), (1, 64, 1, 16), (1, 64, 1, 16)))
+    dA = -_randn(rng, (1, 64, 2), "float32", cuda).abs()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.ssd_scan(x.requires_grad_(), dA, B_, C_, 32)
+    xr, r, i = (_randn(rng, (1, 16, 32), "float32", cuda) for _ in range(3))
+    lam = _randn(rng, (32,), "float32", cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.rglru(xr, r, i, lam.requires_grad_())
+    q = _randn(rng, (1, 16, 4, 32), "float32", cuda).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.attention(q, q[:, :, :1].detach(), q[:, :, :1].detach())
+    with torch.no_grad():  # serving: no autograd, no error
+        ops.ssd_scan(x, dA, B_, C_, 32)
+    for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
+        model = build_model(get_config(arch).reduced(dtype="float32"), cuda).requires_grad_()
+        tokens = torch.randint(1, 200, (1, 40), device=cuda)
+        with pytest.raises(RuntimeError, match="no backward"):
+            model.loss({"tokens": tokens, "labels": tokens})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("accum", [1, 2])
+def test_train_step_gives_every_parameter_a_gradient(cuda, accum):
+    """One AdamW step of reduced qwen3-4b on the card: the loss is finite,
+    flash ran forward and in the remat recompute, and every parameter got a
+    finite, nonzero gradient and moved."""
+    cfg = get_config("qwen3-4b").reduced(dtype="float32")
+    model = build_model(cfg, cuda)
+    state = init_state(model, torch.Generator(device=cuda).manual_seed(0), OptimizerConfig(warmup_steps=1))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    tokens = torch.randint(1, cfg.vocab, (4, 65), device=cuda)
+    flash_attention.launches = 0
+    state, metrics = make_train_step(model, TrainConfig(opt=OptimizerConfig(warmup_steps=1), accum_steps=accum))(
+        state, {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
+    assert flash_attention.launches == cfg.n_layers * 2 * accum
+    assert torch.isfinite(metrics["loss"]) and float(metrics["grad_norm"]) > 0
+    for n, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), n
+        assert p.grad.abs().sum() > 0, n
+        assert not torch.equal(p.detach(), before[n]), n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [True, False])
+def test_stacked_gradients_land_layer_by_layer_on_card(cuda, remat):
+    """When the backward reaches layer l's input on the card, every later
+    layer's slice of the stacked gradients is already written, so no layer's
+    gradient waits for the rest (``models/common.py::layer_view``)."""
+    cfg = get_config("qwen3-4b").reduced(dtype="float32", n_layers=4)
+    model = build_model(cfg, cuda).init(torch.Generator(device=cuda).manual_seed(0)).requires_grad_()
+    wq, seen, block = model.attn["wq"], {}, model._block
+
+    def spy(lp, x, *args):
+        l = lp["ln1"].storage_offset() // cfg.d_model
+
+        def hook(g):  # x's gradient is done: layer l's backward has run
+            seen.setdefault(l, [wq.grad is not None and bool(wq.grad[j].abs().sum() > 0)
+                                for j in range(cfg.n_layers)])
+
+        x.register_hook(hook)
+        return block(lp, x, *args)
+
+    model._block = spy
+    tokens = torch.randint(1, cfg.vocab, (2, 16), device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    loss, _ = model.loss({"tokens": tokens, "labels": tokens}, remat=remat)
+    loss.backward()
+    assert sorted(seen) == list(range(cfg.n_layers))
+    for l, filled in seen.items():
+        assert filled[l + 1:] == [True] * (cfg.n_layers - l - 1), (l, filled)
+    assert all(wq.grad[j].abs().sum() > 0 for j in range(cfg.n_layers))

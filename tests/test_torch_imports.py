@@ -1,5 +1,6 @@
 """The port stands alone: importing it (and chip_smoke.py) pulls in neither
-JAX nor the reference package, and its entry points default to CUDA."""
+JAX nor the reference package, nor msgpack or ml_dtypes (the card's machine
+has neither), and its entry points default to CUDA."""
 import os
 import subprocess
 import sys
@@ -12,7 +13,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.convert import flatten, params_from_jax, tensor_from_numpy
 from repro_torch.device import resolve_device
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import build_model
 from repro_torch.serving.kv_cache import PagedKVCache
 
@@ -28,7 +29,7 @@ import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import chip_smoke  # its imports only: the phases run under __main__
-bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes"))
 print("imported:", bad)
 sys.exit(1 if bad else 0)
 """
@@ -47,7 +48,7 @@ def test_port_sources_name_neither_jax_nor_reference():
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
-                assert words[1].split(".")[0] not in ("jax", "repro"), f"{path}: {line}"
+                assert words[1].split(".")[0] not in ("jax", "repro", "msgpack", "ml_dtypes"), f"{path}: {line}"
 
 
 def _no_card():
@@ -59,6 +60,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     _no_card()
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "qwen3-4b", "--reduced", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "qwen3-4b", "--reduced", "--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
