@@ -26,13 +26,18 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    version and the PyTorch library call where one exists (a yardstick only:
    the port never calls it) beside the bound; flash also at the training
    path's shape (B 2, T 512, H 32, K 8, head_dim 128, causal) in fp32 and
-   bf16;
+   bf16 (timed in bf16); both attention kernels at the MoE configs' heads
+   (granite-moe-1b-a400m: head_dim 64, 2 query heads per kv head;
+   qwen2-moe-a2.7b: head_dim 128, no grouping) in fp32 and bf16, then
+   checked and timed at their serving shapes;
 4. model parity, card (kernels) against CPU (plain path), fp32, one set of
    seeded weights drawn on the card, full width cut in depth: qwen3-4b (2
    layers) with a 64-token prefill, mamba2-1.3b (2 layers) with a 512-token
    prefill (2 chunks of 256) and recurrentgemma-9b (3 layers, one RRA group)
    with a 2048-token prefill, each followed by 4 teacher-forced decode steps
-   (recurrentgemma's wrap its 2048-slot ring), logits compared; then the
+   (recurrentgemma's wrap its 2048-slot ring), granite-moe-1b-a400m and
+   qwen2-moe-a2.7b (2 layers each, MoE FFN in torch ops on both sides) with
+   a 64-token prefill, logits compared; then the
    bf16 path that serves (bf16 weights), card against CPU at the same
    depths and prompts, recorded and not gated: the logits' max|Δ| and the
    first of 8 greedy decode steps whose tokens differ;
@@ -40,15 +45,19 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    qwen3-4b (8 requests, prompt 128, 32 new tokens, max batch 4), then
    mamba2-1.3b (8 requests, prompt 1024, max_len 1280), then
    recurrentgemma-9b (8 requests, prompt 2048, max_len 2112: decode
-   overwrites ring slots); before each run every launch count is set to 0,
+   overwrites ring slots), then granite-moe-1b-a400m and qwen2-moe-a2.7b
+   (24 layers each; 8 requests, prompt 128, 32 new tokens, max batch 4,
+   max_len 256); before each run every launch count is set to 0,
    and after it each kernel's count is checked against the layers of its
-   kind times the prefill or decode calls;
+   kind times the prefill or decode calls, and peak memory against 80 GB;
 6. training qwen3-4b: (a) the gradient check, card (flash kernel forward,
    ``ops.Attention``'s backward) against CPU (the jnp-body port under
    autograd), full width at 2 layers, gated in fp32 and in bf16 compute:
    every leaf's gradient nonzero on both sides, loss |Δ| and each leaf's
    max|Δ| over its max|g| ≤ 1e-3 in fp32 and ≤ 1e-2 in bf16
-   (``launch/grad_check.py``, which also reads planted flash faults); (b) full width
+   (``launch/grad_check.py``, which also reads planted flash faults), and
+   granite-moe-1b-a400m the same way in fp32 (the router's gradient through
+   the gates and the aux loss, every leaf nonzero); (b) full width
    and depth (36 layers, 4.02 B parameters, fp32 masters, bf16 compute,
    AdamW, remat), global batch 4 × 512 in 2 microbatches, 4 steps through
    ``make_train_step``, every launch count set to 0 just before: a finite
@@ -292,20 +301,8 @@ def phase_kernels() -> dict:
 
     dt, es = torch.bfloat16, 2
     results = {}
-    # prefill at the serving shapes: B=1, T=128, H=32, K=8, hd=128, causal
-    B, T, H, K, hd = 1, 128, 32, 8, 128
-    q = randn(rng, (B, T, H, hd), dt)
-    k, v = randn(rng, (B, T, K, hd), dt), randn(rng, (B, T, K, hd), dt)
-    err = check("flash serving shape", flash_attention(q, k, v), ref.mha_reference(q, k, v), TOL[dt])
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
-    flops = 4 * hd * H * B * T * (T + 1) // 2
-    bound_ms, by = bound(nbytes, flops, dt)
-    print(f"  flash serving shape, ms per call (sdpa = library yardstick), "
-          f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
-    t = timings(lambda: flash_attention(q, k, v), lambda: ref.mha_reference(q, k, v),
-                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
-    results["flash_attention"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)
+    flash, paged = attention_serving_shapes(rng, "qwen3-4b", 32, 8, 128)
+    results["flash_attention"], results["paged_decode"] = flash, paged
     # the training path's shape (phase 6): fp32 takes the CUDA-core kernel, bf16 the tensor-core one
     B, T, H, K, hd = grad_check.TRAIN_SHAPE
     train_rng = np.random.default_rng(1)  # the later checks keep their inputs
@@ -315,38 +312,22 @@ def phase_kernels() -> dict:
         err = check(f"flash training shape {B},{T},{H},{K},{hd} causal {dtype}", flash_attention(q, k, v),
                     ref.mha_reference(q, k, v), TOL[dtype])
         results["flash_attention"][f"max_abs_err_training_{str(dtype)[6:]}"] = err
-
-    # decode at the serving shapes: B=1, H=32, K=8, hd=128, page 64, a 256-slot cache
-    H, K, hd, page, S = 32, 8, 128, 64, 256
-    kc, vc = randn(rng, (1, S, K, hd), dt), randn(rng, (1, S, K, hd), dt)
-    pk, pv = kc.view(S // page, page, K, hd), vc.view(S // page, page, K, hd)
-    pt = torch.arange(S // page, dtype=torch.int32, device="cuda").view(1, -1)
-    q = randn(rng, (1, H, hd), dt)
-    err = 0.0
-    for length in range(0, S + 1):
-        lens = torch.tensor([length], dtype=torch.int32, device="cuda")
-        out, expect = paged_decode_attention(q, pk, pv, pt, lens), ref.paged_decode_reference(q, pk, pv, pt, lens)
-        torch.cuda.synchronize()
-        d = (out.float() - expect.float()).abs()
-        if not bool((d <= TOL[dt][0] + TOL[dt][1] * expect.float().abs()).all()):
-            raise AssertionError(f"paged decode disagrees at length {length}: max|d|={d.max().item()}")
-        err = max(err, d.max().item())
-    print(f"  paged serving shape, lengths 0..{S}: max|d|={err:.3e} atol={TOL[dt][0]:.0e} ok")
-    L = 160
-    lens = torch.tensor([L], dtype=torch.int32, device="cuda")
-    qs, ks, vs = q.view(1, H, 1, hd), kc[:, :L].transpose(1, 2), vc[:, :L].transpose(1, 2)
-    nbytes = 2 * L * K * hd * es + 2 * q.numel() * es + pt.numel() * 4 + 4
-    flops = 4 * H * hd * L
+    # timed in bf16, the training path's compute dtype
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
+    flops = 4 * hd * H * B * T * (T + 1) // 2
     bound_ms, by = bound(nbytes, flops, dt)
-    print(f"  paged serving shape at length {L}, ms per call (sdpa = library yardstick), "
+    print(f"  flash training shape bf16, ms per call (sdpa = library yardstick), "
           f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
-    t = timings(lambda: paged_decode_attention(q, pk, pv, pt, lens),
-                lambda: ref.paged_decode_reference(q, pk, pv, pt, lens),
-                lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True))
-    results["paged_decode"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)
+    t = timings(lambda: flash_attention(q, k, v), lambda: ref.mha_reference(q, k, v),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), plain_iters=20)
+    results["flash_attention"]["training"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)
+
     hd256 = phase_hd256_kernels(rng)
     results["flash_attention"]["hd256"] = hd256["flash_attention"]
     results["paged_decode"]["hd256"] = hd256["paged_decode"]
+    for name, by_arch in phase_moe_head_kernels(rng).items():
+        results[name].update(by_arch)
     results.update(phase_ssd_kernels(rng))
     results.update(phase_rglru_kernel(rng))
     return results
@@ -497,6 +478,89 @@ def phase_hd256_kernels(rng) -> dict:
                 lambda: ref.paged_decode_reference(q, pk, pv, pt, lens),
                 lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True))
     out["paged_decode"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)
+    return out
+
+
+def attention_serving_shapes(rng, arch: str, H: int, K: int, hd: int) -> tuple[dict, dict]:
+    """Both attention kernels at a serving path's shapes in bf16, checked and
+    timed: flash over a 128-token causal prompt (B 1), paged decode over a
+    256-slot cache of identity pages of 64 (every length 0..256 checked,
+    timed at 160), each beside its bound, its plain version and SDPA.
+    Returns the (flash, paged decode) numbers."""
+    dt, es = torch.bfloat16, 2
+    tag = f"{arch} (hd {hd}, {H} on {K} kv heads)"
+    B, T = 1, 128
+    q = randn(rng, (B, T, H, hd), dt)
+    k, v = randn(rng, (B, T, K, hd), dt), randn(rng, (B, T, K, hd), dt)
+    err = check(f"flash {tag} serving shape", flash_attention(q, k, v), ref.mha_reference(q, k, v), TOL[dt])
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
+    flops = 4 * hd * H * B * T * (T + 1) // 2
+    bound_ms, by = bound(nbytes, flops, dt)
+    print(f"  flash {tag} serving shape, ms per call (sdpa = library yardstick), "
+          f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
+    t = timings(lambda: flash_attention(q, k, v), lambda: ref.mha_reference(q, k, v),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
+    flash = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)
+
+    S, page = 256, 64
+    kc, vc = randn(rng, (1, S, K, hd), dt), randn(rng, (1, S, K, hd), dt)
+    pk, pv = kc.view(S // page, page, K, hd), vc.view(S // page, page, K, hd)
+    pt = torch.arange(S // page, dtype=torch.int32, device="cuda").view(1, -1)
+    q = randn(rng, (1, H, hd), dt)
+    err = 0.0
+    for length in range(0, S + 1):
+        lens = torch.tensor([length], dtype=torch.int32, device="cuda")
+        out, expect = paged_decode_attention(q, pk, pv, pt, lens), ref.paged_decode_reference(q, pk, pv, pt, lens)
+        torch.cuda.synchronize()
+        d = (out.float() - expect.float()).abs()
+        if not bool((d <= TOL[dt][0] + TOL[dt][1] * expect.float().abs()).all()):
+            raise AssertionError(f"paged decode {tag} disagrees at length {length}: max|d|={d.max().item()}")
+        err = max(err, d.max().item())
+    print(f"  paged {tag} serving shape, lengths 0..{S}: max|d|={err:.3e} atol={TOL[dt][0]:.0e} ok")
+    L = 160
+    lens = torch.tensor([L], dtype=torch.int32, device="cuda")
+    qs, ks, vs = q.view(1, H, 1, hd), kc[:, :L].transpose(1, 2), vc[:, :L].transpose(1, 2)
+    nbytes = 2 * L * K * hd * es + 2 * q.numel() * es + pt.numel() * 4 + 4
+    flops = 4 * H * hd * L
+    bound_ms, by = bound(nbytes, flops, dt)
+    print(f"  paged {tag} serving shape at length {L}, ms per call (sdpa = library yardstick), "
+          f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
+    t = timings(lambda: paged_decode_attention(q, pk, pv, pt, lens),
+                lambda: ref.paged_decode_reference(q, pk, pv, pt, lens),
+                lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True))
+    return flash, dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)
+
+
+# the MoE configs' attention heads: (arch, H, K, hd)
+MOE_HEADS = [("granite-moe-1b-a400m", 16, 8, 64), ("qwen2-moe-a2.7b", 16, 16, 128)]
+
+
+def phase_moe_head_kernels(rng) -> dict:
+    """Both attention kernels at the MoE configs' head shapes, new to the
+    card with this slice: granite-moe-1b-a400m's hd 64 with 2 query heads per
+    kv head, qwen2-moe-a2.7b's hd 128 with no grouping (G 1). In fp32 and
+    bf16: flash causal at T 128 (the serving prefill), ragged T 77 at B 2 and
+    non-causal T 100; paged decode at B 3 over a random page table. Then at
+    the serving shapes (``attention_serving_shapes``). Returns {kernel:
+    {arch: numbers}}."""
+    out = {"flash_attention": {}, "paged_decode": {}}
+    for arch, H, K, hd in MOE_HEADS:
+        tag = f"{arch} (hd {hd}, {H} on {K} kv heads)"
+        for dtype in (torch.float32, torch.bfloat16):
+            for B, T, causal in ((1, 128, True), (2, 77, True), (1, 100, False)):
+                q = randn(rng, (B, T, H, hd), dtype)
+                k, v = randn(rng, (B, T, K, hd), dtype), randn(rng, (B, T, K, hd), dtype)
+                check(f"flash {tag} {B},{T} causal={causal} {dtype}", flash_attention(q, k, v, causal=causal),
+                      ref.mha_reference(q, k, v, causal=causal), TOL[dtype])
+            q = randn(rng, (3, H, hd), dtype)
+            pk, pv = randn(rng, (12, 64, K, hd), dtype), randn(rng, (12, 64, K, hd), dtype)
+            pt = torch.from_numpy(rng.integers(0, 12, size=(3, 4)).astype(np.int32)).cuda()
+            lens = torch.tensor([1, 130, 256], dtype=torch.int32, device="cuda")
+            check(f"paged {tag} 3,12 pages of 64, lengths 1/130/256 {dtype}",
+                  paged_decode_attention(q, pk, pv, pt, lens), ref.paged_decode_reference(q, pk, pv, pt, lens),
+                  TOL[dtype])
+        out["flash_attention"][arch], out["paged_decode"][arch] = attention_serving_shapes(rng, arch, H, K, hd)
     return out
 
 
@@ -765,6 +829,8 @@ def serve_path(arch: str, prompt_len: int, max_len: int) -> dict:
     expect.update({k: pre * m["prefill_calls"] + dec * m["decode_calls"] for k, (pre, dec) in per_call.items()})
     if launches != expect:
         raise AssertionError(f"{arch}: launches {launches} != layers of each kind x calls {expect}")
+    if peak >= MEMORY_LIMIT:
+        raise AssertionError(f"{arch}: peak memory {peak} B is not under {MEMORY_LIMIT} B")
     del model, engine
     return {k: launches[k] for k in per_call}
 
@@ -773,7 +839,8 @@ def phase_serve() -> dict:
     """{arch: {kernel: launches}} of each path's serving run."""
     return {arch: serve_path(arch, prompt_len, max_len)
             for arch, prompt_len, max_len in (("qwen3-4b", 128, 256), ("mamba2-1.3b", 1024, 1280),
-                                              ("recurrentgemma-9b", 2048, 2112))}
+                                              ("recurrentgemma-9b", 2048, 2112),
+                                              ("granite-moe-1b-a400m", 128, 256), ("qwen2-moe-a2.7b", 128, 256))}
 
 
 class MemoryKV:
@@ -824,17 +891,18 @@ class MemoryKV:
         pass
 
 
-def phase_grad_check(dtype: str) -> dict:
-    """Gradients of qwen3-4b at full width, 2 layers, fp32 masters, compute
+def phase_grad_check(dtype: str, arch: str = "qwen3-4b") -> dict:
+    """Gradients of ``arch`` at full width, 2 layers, fp32 masters, compute
     in ``dtype``, one TokenPipeline batch (B 2, T 512): the card (the flash
-    kernel forward, ``ops.Attention``'s backward; remat) against the CPU (the
-    jnp-body port under autograd), weights drawn on the card and copied to
-    the CPU (``launch/grad_check.py``). Gated in both dtypes at
-    ``grad_check.GRAD_RTOL``, every leaf's gradient nonzero on both sides."""
+    kernel forward, ``ops.Attention``'s backward; remat; a MoE model's FFN
+    in torch ops) against the CPU (the jnp-body port under autograd),
+    weights drawn on the card and copied to the CPU
+    (``launch/grad_check.py``). Gated at ``grad_check.GRAD_RTOL``, every
+    leaf's gradient nonzero on both sides (a MoE model's router included)."""
     t0 = time.perf_counter()
-    r = grad_check.run(dtype)
+    r = grad_check.run(dtype, arch)
     tol, ok = grad_check.GRAD_RTOL[dtype], grad_check.passes(r, dtype)
-    print(f"[6a gradient check] qwen3-4b full width, 2 layers, fp32 masters, {dtype} compute, B 2 T 512: "
+    print(f"[6a gradient check] {arch} full width, 2 layers, fp32 masters, {dtype} compute, B 2 T 512: "
           f"loss card {r['loss_card']:.6f} cpu {r['loss_cpu']:.6f} |d| {r['loss_abs_err']:.3e}, worst leaf "
           f"{r['worst_leaf']} max|dg|/max|g| {r['worst_rel_err']:.3e}, leaves with a zero gradient {r['zero']}, "
           f"tol {tol:.0e} {'ok' if ok else 'FAIL'}, {time.perf_counter() - t0:.1f} s")
@@ -950,24 +1018,33 @@ def main() -> int:
     phase_parity("qwen3-4b", 64)
     phase_parity("mamba2-1.3b", 512)
     phase_parity("recurrentgemma-9b", 2048, n_layers=3)
+    phase_parity("granite-moe-1b-a400m", 64)
+    phase_parity("qwen2-moe-a2.7b", 64)
     phase_bf16_record("qwen3-4b", 64)
     phase_bf16_record("mamba2-1.3b", 512)
     phase_bf16_record("recurrentgemma-9b", 2048, n_layers=3)
+    phase_bf16_record("granite-moe-1b-a400m", 64)
+    phase_bf16_record("qwen2-moe-a2.7b", 64)
     by_path = phase_serve()
     phase_grad_check("float32")
     phase_grad_check("bfloat16")
+    phase_grad_check("float32", "granite-moe-1b-a400m")
     by_path["qwen3-4b training"] = phase_train_full(smi)
     phase_resume()
     # a kernel's launches: those of the first path that runs it, whose shapes
     # its top-level times are taken at; every path's count beside them, and
-    # the head_dim-256 times with recurrentgemma-9b's count
+    # the times at another path's shapes (head_dim 256, the MoE heads, the
+    # training shape) with that path's count
+    sub_paths = {"hd256": "recurrentgemma-9b", "training": "qwen3-4b training",
+                 **{arch: arch for arch, *_ in MOE_HEADS}}
     line = {"kernels": []}
     for k in KERNELS:
         counts = {arch: c[k] for arch, c in by_path.items() if k in c}
         entry = {"name": k, **KERNELS[k], "launches": next(iter(counts.values())), "launches_by_path": counts,
                  **results[k]}
-        if "hd256" in entry:
-            entry["hd256"] = {**entry["hd256"], "launches": counts["recurrentgemma-9b"]}
+        for key, path in sub_paths.items():
+            if key in entry:
+                entry[key] = {**entry[key], "launches": counts[path]}
         line["kernels"].append(entry)
     print("kernels: " + json.dumps({e["name"]: {"launches": e["launches_by_path"], "max_abs_err": e["max_abs_err"]}
                                     for e in line["kernels"]}))

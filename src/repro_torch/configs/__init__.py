@@ -1,7 +1,9 @@
 """Architecture registry — ``--arch <id>`` resolution.
 
-Lists the configs that the port serves so far (dense, ssm and hybrid); the
-other families arrive with their models.
+Lists the configs that the port builds: dense (llama3-8b, qwen3-4b,
+phi3-medium-14b, command-r-plus-104b), vlm (internvl2-76b), moe
+(granite-moe-1b-a400m, qwen2-moe-a2.7b), ssm (mamba2-1.3b) and hybrid
+(recurrentgemma-9b). whisper-small (audio) arrives with its model.
 """
 from __future__ import annotations
 
@@ -10,9 +12,14 @@ import importlib
 from .base import ModelConfig
 
 _ARCH_MODULES = {
+    "command-r-plus-104b": "command_r_plus_104b",
+    "phi3-medium-14b": "phi3_medium_14b",
     "llama3-8b": "llama3_8b",
-    "mamba2-1.3b": "mamba2_1_3b",
     "qwen3-4b": "qwen3_4b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "internvl2-76b": "internvl2_76b",
+    "mamba2-1.3b": "mamba2_1_3b",
     "recurrentgemma-9b": "recurrentgemma_9b",
 }
 

@@ -1,0 +1,17 @@
+"""phi3-medium-14b — dense GQA, RoPE + SwiGLU. [arXiv:2404.14219; unverified]"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3-medium-14b",
+    family="dense",
+    n_layers=40,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=10,
+    d_ff=17920,
+    vocab=100352,
+    head_dim=128,
+    rope_theta=10000.0,
+    rms_eps=1e-5,
+    source="arXiv:2404.14219",
+)

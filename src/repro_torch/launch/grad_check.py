@@ -1,13 +1,16 @@
-"""Gradients of qwen3-4b on the card against the CPU, and what planted faults
+"""Gradients of a model on the card against the CPU, and what planted faults
 in the bf16 flash kernel read there.
 
-    PYTHONPATH=src python -m repro_torch.launch.grad_check            # fp32 and bf16 readings
+    PYTHONPATH=src python -m repro_torch.launch.grad_check            # qwen3-4b, fp32 and bf16 readings
     PYTHONPATH=src python -m repro_torch.launch.grad_check --mutants  # and each planted fault's
+    PYTHONPATH=src python -m repro_torch.launch.grad_check --arch granite-moe-1b-a400m
 
-qwen3-4b at full width cut to 2 layers, fp32 masters, compute in the
-config's dtype, one TokenPipeline batch (B 2, T 512). The card runs the flash
-kernel's forward and ``ops.Attention``'s backward (remat); the CPU runs the
-jnp-body port of attention under autograd. Both take one set of weights,
+``--arch`` (qwen3-4b by default; a dense or MoE config) at full width cut to
+2 layers, fp32 masters, compute in the given dtype, one TokenPipeline batch
+(B 2, T 512). The card runs the flash kernel's forward and
+``ops.Attention``'s backward (remat), and for a MoE config the MoE FFN in
+torch ops with the router's gradient through the gates and the aux loss;
+the CPU runs the jnp-body port of attention under autograd. Both take one set of weights,
 drawn on the card and copied to the CPU. A reading is the loss |Δ| and, per
 leaf, the max|Δ| of the gradient over that leaf's max|g| on the CPU.
 ``chip_smoke.py`` phase 6a gates both at ``GRAD_RTOL`` of the compute dtype,
@@ -55,8 +58,8 @@ MUTANTS = {  # name: (old, new), substituted once in the bf16 tensor-core kernel
 }
 
 
-def models(dtype: str, n_layers: int = 2):
-    cfg = dataclasses.replace(get_config("qwen3-4b"), n_layers=n_layers, dtype=dtype)
+def models(dtype: str, arch: str = "qwen3-4b", n_layers: int = 2):
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype=dtype)
     gpu = build_model(cfg, "cuda").init(torch.Generator(device="cuda").manual_seed(0)).requires_grad_()
     cpu = build_model(cfg, "cpu")
     cpu.load_state_dict(gpu.state_dict())
@@ -95,10 +98,10 @@ def passes(reading: dict, dtype: str) -> bool:
     return not reading["zero"] and reading["loss_abs_err"] <= tol and reading["worst_rel_err"] <= tol
 
 
-def run(dtype: str) -> dict:
-    """One reading, card against CPU, with the flash library as built."""
+def run(dtype: str, arch: str = "qwen3-4b") -> dict:
+    """One reading of ``arch``, card against CPU, with the flash library as built."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, gpu, cpu = models(dtype)
+    cfg, gpu, cpu = models(dtype, arch)
     data = batch(cfg)
     return compare(gradients(gpu, data), gradients(cpu, data))
 
@@ -170,7 +173,8 @@ def mutants() -> list[dict]:
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mutants", action="store_true", help="also read each planted flash fault")
+    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--mutants", action="store_true", help="also read each planted flash fault (qwen3-4b)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("grad_check needs a CUDA card")
@@ -178,8 +182,8 @@ def main(argv: list[str] | None = None) -> None:
                          capture_output=True, text=True).stdout.strip()
     print(f"[{smi}]")
     for dtype in ("float32", "bfloat16"):
-        r = run(dtype)
-        print(f"{dtype}: {r} tol {GRAD_RTOL[dtype]:.0e} {'ok' if passes(r, dtype) else 'FAIL'}", flush=True)
+        r = run(dtype, args.arch)
+        print(f"{args.arch} {dtype}: {r} tol {GRAD_RTOL[dtype]:.0e} {'ok' if passes(r, dtype) else 'FAIL'}", flush=True)
     if args.mutants:
         mutants()
 

@@ -7,12 +7,16 @@ of the serving path, after a warm-up request.
         --requests 4 --prompt-len 1024 --max-new 16 --max-batch 4 --max-len 1280
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch recurrentgemma-9b \
         --requests 4 --prompt-len 2048 --max-new 16 --max-batch 4 --max-len 2112
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch qwen2-moe-a2.7b \
+        --requests 4 --prompt-len 128 --max-new 16 --max-batch 4
 
 Prints the window's wall time (timed once without the profiler, then run
 again under it), the device's busy time (the sum of its kernel and copy
-times: one stream, so they do not overlap), the busy share, and the
-device time by kernel group and of the top kernels. The last line is the
-same as one JSON object. Needs a CUDA card.
+times: one stream, so they do not overlap), the busy share, the device
+time by kernel group and of the top kernels, and for a MoE model the
+device time by kernel group inside each part of the path (``PARTS``: the
+whole MoE FFN, and its dispatch, which builds the expert table). The last
+line is the same as one JSON object. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -22,11 +26,12 @@ from collections import defaultdict
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve
+from repro_torch.models import moe, transformer
 
 GROUPS = [  # (group, substrings of the kernel name), first match wins
     ("flash_attention kernel", ("flash_fwd_mma_kernel", "flash_fwd_kernel")),  # bf16, fp32
@@ -41,12 +46,47 @@ GROUPS = [  # (group, substrings of the kernel name), first match wins
 ]
 
 
+PARTS = {  # part of the serving path: (module, function) whose launches it covers
+    "moe ffn": (transformer, "moe_ffn"),
+    "moe dispatch": (moe, "dispatch"),
+}
+
+
 def group_of(name: str) -> str:
     low = name.lower()
     for group, keys in GROUPS:
         if any(k in low for k in keys):
             return group
     return "other"
+
+
+def annotated(name, fn):
+    """``fn`` inside a profiler range named ``name``."""
+    def wrapper(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+def device_time(prof, parts) -> tuple[dict, dict]:
+    """(device ms by kernel group, {part: device ms by kernel group}): a
+    part's kernels are those that start inside its ranges on the device."""
+    kernels, ranges = [], defaultdict(list)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name in parts:
+            ranges[e.name].append((e.time_range.start, e.time_range.end))
+        else:
+            kernels.append((e.time_range.start, group_of(e.name), e.time_range.elapsed_us() / 1e3))
+    by_group: dict[str, float] = defaultdict(float)
+    by_part: dict[str, dict] = {name: defaultdict(float) for name in ranges}
+    for start, group, ms in kernels:
+        by_group[group] += ms
+        for name, spans in ranges.items():
+            if any(a <= start < b for a, b in spans):
+                by_part[name][group] += ms
+    return dict(by_group), {name: dict(g) for name, g in by_part.items()}
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -64,29 +104,33 @@ def main(argv: list[str] | None = None) -> dict:
                   max_batch=args.max_batch, max_len=args.max_len)
     serve.run(model, **{**window, "requests": 1})  # warm-up: kernel builds, cuBLAS, allocator
     _, plain = serve.run(model, **window)  # the window without the profiler
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for name, (module, attr) in PARTS.items():
+        setattr(module, attr, annotated(name, getattr(module, attr)))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, m = serve.run(model, **window)
 
-    by_group: dict[str, float] = defaultdict(float)
+    by_group, by_part = device_time(prof, PARTS)
     by_kernel: dict[str, float] = defaultdict(float)
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            by_group[group_of(e.name)] += us
-            by_kernel[e.name] += us
-    busy = sum(by_group.values()) / 1e6
+        if e.device_type == DeviceType.CUDA and e.name not in PARTS:
+            by_kernel[e.name] += e.time_range.elapsed_us()
+    busy = sum(by_group.values()) / 1e3
     wall = plain["wall_s"]
     out = {
         "device": torch.cuda.get_device_name(0), "arch": model.cfg.name, "layers": model.cfg.n_layers,
         **{k: m[k] for k in ("requests", "tokens", "prefill_calls", "decode_calls")},
         "wall_s": wall, "wall_profiled_s": m["wall_s"], "device_busy_s": busy, "busy_share": busy / wall,
-        "groups_ms": {g: v / 1e3 for g, v in sorted(by_group.items(), key=lambda kv: -kv[1])},
+        "groups_ms": {g: v for g, v in sorted(by_group.items(), key=lambda kv: -kv[1])},
+        "parts_ms": by_part,
         "top_kernels_ms": {k[:90]: v / 1e3 for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]},
     }
     print(f"window: {wall:.3f} s wall ({m['wall_s']:.3f} s profiled), device busy {busy:.3f} s "
           f"({100 * busy / wall:.1f}%), {m['prefill_calls']} prefills, {m['decode_calls']} decode calls")
     for g, v in out["groups_ms"].items():
         print(f"  {g:24s} {v:10.3f} ms")
+    for part, groups in by_part.items():
+        print(f"  part {part}: {sum(groups.values()):.3f} ms, "
+              + ", ".join(f"{g} {v:.3f}" for g, v in sorted(groups.items(), key=lambda kv: -kv[1])))
     print(json.dumps(out))
     return out
 

@@ -20,17 +20,15 @@ import argparse
 import dataclasses
 import json
 import time
-from collections import defaultdict
 
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.launch.profile_serve import group_of
+from repro_torch.launch.profile_serve import annotated, device_time
 from repro_torch.models import build_model
 from repro_torch.training import train_step as train_step_module
 from repro_torch.training.optimizer import OptimizerConfig
@@ -41,13 +39,6 @@ PARTS = {  # part of the step: (module, function) whose launches it covers
     "gradient clip": (train_step_module, "clip_by_global_norm"),
     "attention backward": (ops, "attention_backward"),
 }
-
-
-def _annotated(name, fn):
-    def wrapper(*args, **kwargs):
-        with record_function(name):
-            return fn(*args, **kwargs)
-    return wrapper
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -69,9 +60,9 @@ def main(argv: list[str] | None = None) -> dict:
     pipe = TokenPipeline(cfg.vocab, args.batch, args.seq, seed=0)
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()} for _ in range(3)]
     for name, (module, attr) in PARTS.items():
-        setattr(module, attr, _annotated(name, getattr(module, attr)))
+        setattr(module, attr, annotated(name, getattr(module, attr)))
     loss = model.loss
-    model.loss = _annotated("loss forward", loss)
+    model.loss = annotated("loss forward", loss)
     step = make_train_step(model, TrainConfig(opt=opt, accum_steps=args.accum))
     state, _ = step(state, batches[0])  # warm-up: kernel builds, cuBLAS, allocator, gradient buffers
     torch.cuda.synchronize()
@@ -85,26 +76,14 @@ def main(argv: list[str] | None = None) -> dict:
         torch.cuda.synchronize()
         wall_profiled = time.perf_counter() - t0
 
-    by_group: dict[str, float] = defaultdict(float)
-    kernels = []
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.name not in PARTS and e.name != "loss forward":
-            us = e.time_range.elapsed_us()
-            by_group[group_of(e.name)] += us
-            kernels.append((e.time_range.start, e.time_range.end, us))
-    # a part's device time: the kernels that run inside its ranges on the device
-    ranges = defaultdict(list)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and (e.name in PARTS or e.name == "loss forward"):
-            ranges[e.name].append((e.time_range.start, e.time_range.end))
-    by_part = {name: sum(us for s, _, us in kernels if any(a <= s < b for a, b in spans)) / 1e3
-               for name, spans in ranges.items()}
-    busy = sum(by_group.values()) / 1e6
+    by_group, parts = device_time(prof, {*PARTS, "loss forward"})
+    by_part = {name: sum(groups.values()) for name, groups in parts.items()}
+    busy = sum(by_group.values()) / 1e3
     out = {
         "device": torch.cuda.get_device_name(0), "arch": cfg.name, "layers": cfg.n_layers,
         "batch": args.batch, "seq": args.seq, "accum": args.accum, "loss": float(metrics["loss"]),
         "wall_s": wall, "wall_profiled_s": wall_profiled, "device_busy_s": busy, "busy_share": busy / wall,
-        "groups_ms": {g: v / 1e3 for g, v in sorted(by_group.items(), key=lambda kv: -kv[1])},
+        "groups_ms": {g: v for g, v in sorted(by_group.items(), key=lambda kv: -kv[1])},
         "parts_ms": by_part,
         "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
     }

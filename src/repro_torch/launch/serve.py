@@ -8,6 +8,9 @@
         --prompt-len 2048 --max-new 32 --max-len 2112
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
         --reduced --device cpu --prompt-len 40 --max-len 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
+        --requests 8 --prompt-len 128 --max-new 32 --max-batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --reduced --device cpu
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Weights are random, drawn
 from seed 0, in bf16 on the device one tensor at a time.

@@ -9,14 +9,14 @@ from .transformer import TransformerLM
 
 
 def build_model(cfg, device=None, param_dtype: torch.dtype = torch.float32):
-    """dense | vlm → :class:`TransformerLM`, ssm → :class:`Mamba2LM`, hybrid →
-    :class:`GriffinLM`, on ``device`` (``cuda`` by default)."""
-    if cfg.family in ("dense", "vlm"):
+    """dense | moe | vlm → :class:`TransformerLM`, ssm → :class:`Mamba2LM`,
+    hybrid → :class:`GriffinLM`, on ``device`` (``cuda`` by default)."""
+    if cfg.family in ("dense", "moe", "vlm"):
         return TransformerLM(cfg, device=device, param_dtype=param_dtype)
     if cfg.family == "ssm":
         return Mamba2LM(cfg, device=device, param_dtype=param_dtype)
     if cfg.family == "hybrid":
         return GriffinLM(cfg, device=device, param_dtype=param_dtype)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: moe and audio are ROADMAP Queue A items 13 and 16"
+        f"family {cfg.family!r} is not ported yet: audio (whisper) is ROADMAP Queue A item 16"
     )

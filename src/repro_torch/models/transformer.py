@@ -1,9 +1,8 @@
-"""Decoder-only transformer LM, dense family.
+"""Decoder-only transformer LM covering the dense, moe and vlm families.
 
-GQA attention (+qk-norm for qwen3, +bias for qwen2-style configs, +parallel
-attention/FFN residual block for command-r), GLU or GELU FFN, optional
-vision-embedding merge, rotary or learned positions. The MoE FFN arrives with
-the MoE family.
+GQA attention (+qk-norm for qwen3, +bias for qwen2-moe, +parallel
+attention/FFN residual block for command-r), GLU or GELU FFN or the MoE FFN
+(:mod:`.moe`), optional vision-embedding merge, rotary or learned positions.
 
 Parameters keep the reference's layout: a leading ``L`` axis on every
 per-layer tensor and the same key paths (``state_dict`` key ``attn.wq`` is
@@ -36,6 +35,7 @@ from .common import (
     rope_tables,
     softmax_cross_entropy,
 )
+from .moe import init_moe_, moe_ffn, moe_params
 
 CACHE_DTYPE = torch.bfloat16  # the KV cache is bf16 whatever the compute dtype, as in the reference
 
@@ -118,11 +118,8 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg, device=None, param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.family not in ("dense", "vlm"):
-            raise NotImplementedError(
-                f"family {cfg.family!r}: TransformerLM ports the dense family; the MoE FFN is "
-                "ROADMAP Queue A item 13"
-            )
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise NotImplementedError(f"family {cfg.family!r}: TransformerLM runs the dense, moe and vlm families")
         self.cfg = cfg
         dev = resolve_device(device)
         d, L, V = cfg.d_model, cfg.n_layers, cfg.padded_vocab
@@ -136,7 +133,10 @@ class TransformerLM(nn.Module):
         self.attn = attn_params(cfg, L, p)
         if not cfg.parallel_block:
             self.ln2 = p(L, d)
-        self.mlp = mlp_params(cfg, L, p)
+        if cfg.family == "moe":
+            self.moe = moe_params(cfg, L, p)
+        else:
+            self.mlp = mlp_params(cfg, L, p)
         if not cfg.tie_embeddings:
             self.out_embed = p(V, d)
         if cfg.pos_emb == "learned":
@@ -161,7 +161,10 @@ class TransformerLM(nn.Module):
         init_truncated_normal_(self.embed, d**-0.5, generator)
         self.embed[cfg.vocab:] = 0
         init_attn_(self.attn, cfg, generator)
-        init_mlp_(self.mlp, cfg, generator)
+        if cfg.family == "moe":
+            init_moe_(self.moe, cfg, generator)
+        else:
+            init_mlp_(self.mlp, cfg, generator)
         if not cfg.tie_embeddings:
             init_truncated_normal_(self.out_embed, d**-0.5, generator)
             self.out_embed[cfg.vocab:] = 0
@@ -170,8 +173,9 @@ class TransformerLM(nn.Module):
         return self
 
     def _layer(self, l: int) -> dict:
+        ffn = "moe" if self.cfg.family == "moe" else "mlp"
         lp = {"ln1": layer_view(self.ln1, l), "attn": {k: layer_view(v, l) for k, v in self.attn.items()},
-              "mlp": {k: layer_view(v, l) for k, v in self.mlp.items()}}
+              ffn: {k: layer_view(v, l) for k, v in getattr(self, ffn).items()}}
         if not self.cfg.parallel_block:
             lp["ln2"] = layer_view(self.ln2, l)
         return lp
@@ -179,23 +183,31 @@ class TransformerLM(nn.Module):
     def _out_embed(self) -> torch.Tensor:
         return self.embed if self.cfg.tie_embeddings else self.out_embed
 
+    def _ffn(self, lp, h):
+        """The FFN: (output, the layer's aux loss, None but in the MoE FFN)."""
+        if "moe" in lp:
+            return moe_ffn(lp["moe"], h, self.cfg)
+        return apply_mlp(lp["mlp"], h, self.cfg), None
+
     def _block_tail(self, lp, x, h, ao):
-        """Residual adds and the FFN, after attention's output projection."""
+        """Residual adds and the FFN, after attention's output projection:
+        (x, the layer's aux loss or None)."""
         cfg = self.cfg
         if cfg.parallel_block:
-            return x + ao + apply_mlp(lp["mlp"], h, cfg)
+            mo, aux = self._ffn(lp, h)
+            return x + ao + mo, aux
         x = x + ao
-        h2 = norm(x, lp["ln2"], cfg.rms_eps, cfg.norm_type)
-        return x + apply_mlp(lp["mlp"], h2, cfg)
+        mo, aux = self._ffn(lp, norm(x, lp["ln2"], cfg.rms_eps, cfg.norm_type))
+        return x + mo, aux
 
     def _block(self, lp, x, sin, cos, q_chunk):
-        """One layer over the whole sequence: (x, k, v)."""
+        """One layer over the whole sequence: (x, aux, k, v)."""
         B, T, _ = x.shape
         h = norm(x, lp["ln1"], self.cfg.rms_eps, self.cfg.norm_type)
         q, k, v = qkv(lp["attn"], h, self.cfg, sin, cos)
         ao = attn_lib.full_attention(q, k, v, causal=True, q_chunk=q_chunk)
         ao = ao.reshape(B, T, -1) @ lp["attn"]["wo"].to(x.dtype)
-        return self._block_tail(lp, x, h, ao), k, v
+        return *self._block_tail(lp, x, h, ao), k, v
 
     # -- forward (prefill) -----------------------------------------------------
     def _trunk(self, tokens, vision_embeds, q_chunk, kv_sink=None, remat=False):
@@ -208,25 +220,28 @@ class TransformerLM(nn.Module):
         if cfg.pos_emb == "learned":
             x = x + self.pos_embed[:T].to(dtype)
         sin, cos = rope_tables(torch.arange(T, device=tokens.device), cfg.resolved_head_dim, cfg.rope_theta)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for l in range(cfg.n_layers):
             lp = self._layer(l)
             if remat:  # nothing saved inside a layer: its forward runs again in the backward
-                x, k, v = checkpoint(self._block, lp, x, sin, cos, q_chunk, use_reentrant=False,
-                                     preserve_rng_state=False)
+                x, aux_l, k, v = checkpoint(self._block, lp, x, sin, cos, q_chunk, use_reentrant=False,
+                                            preserve_rng_state=False)
             else:
-                x, k, v = self._block(lp, x, sin, cos, q_chunk)
+                x, aux_l, k, v = self._block(lp, x, sin, cos, q_chunk)
+            if aux_l is not None:
+                aux = aux + aux_l
             if kv_sink is not None:
                 kv_sink(l, k, v)
-        return norm(x, self.ln_f, cfg.rms_eps, cfg.norm_type)
+        return norm(x, self.ln_f, cfg.rms_eps, cfg.norm_type), aux
 
     def hidden_states(self, tokens, vision_embeds=None, *, remat: bool = False, collect_kv: bool = False,
                       q_chunk: int = 2048):
         """Returns (hidden (B,T,d), aux_loss, stacked (k, v) (L,B,T,K,hd) or None)."""
         kvs = []
-        x = self._trunk(tokens, vision_embeds, q_chunk,
-                        (lambda l, k, v: kvs.append((k, v))) if collect_kv else None, remat)
+        x, aux = self._trunk(tokens, vision_embeds, q_chunk,
+                             (lambda l, k, v: kvs.append((k, v))) if collect_kv else None, remat)
         stacked = (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])) if collect_kv else None
-        return x, torch.zeros((), dtype=torch.float32, device=x.device), stacked
+        return x, aux, stacked
 
     def forward(self, tokens, vision_embeds=None, *, remat: bool = False, q_chunk: int = 2048):
         x, aux, _ = self.hidden_states(tokens, vision_embeds, remat=remat, q_chunk=q_chunk)
@@ -234,9 +249,13 @@ class TransformerLM(nn.Module):
 
     def loss(self, batch: dict, *, remat: bool = True, q_chunk: int = 2048):
         """``batch``: tokens and labels (B,T), optional mask and vision_embeds.
-        Returns (loss, metrics) as the reference's ``loss``."""
-        logits, _ = self.forward(batch["tokens"], batch.get("vision_embeds"), remat=remat, q_chunk=q_chunk)
+        Returns (loss, metrics) as the reference's ``loss``: the MoE family
+        adds ``router_aux_coef · aux`` and reports ``aux_loss``."""
+        logits, aux = self.forward(batch["tokens"], batch.get("vision_embeds"), remat=remat, q_chunk=q_chunk)
         loss, metrics = softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+        if self.cfg.family == "moe":
+            loss = loss + self.cfg.router_aux_coef * aux
+            metrics["aux_loss"] = aux
         metrics["loss"] = loss
         return loss, metrics
 
@@ -261,7 +280,7 @@ class TransformerLM(nn.Module):
             cache["k"][l, :, :T] = k
             cache["v"][l, :, :T] = v
 
-        x = self._trunk(tokens, vision_embeds, q_chunk, sink)
+        x, _ = self._trunk(tokens, vision_embeds, q_chunk, sink)
         logits = logits_from_hidden(x[:, -1:, :], self._out_embed(), self.cfg.vocab)[:, 0]
         return logits, cache
 
@@ -284,7 +303,7 @@ class TransformerLM(nn.Module):
             vc = attn_lib.update_cache(cache["v"][l], v, pos)
             ao = attn_lib.decode_attention(q, kc, vc, pos + 1)
             ao = ao.reshape(B, 1, -1) @ lp["attn"]["wo"].to(x.dtype)
-            x = self._block_tail(lp, x, h, ao)
+            x, _ = self._block_tail(lp, x, h, ao)
         x = norm(x, self.ln_f, cfg.rms_eps, cfg.norm_type)
         logits = logits_from_hidden(x, self._out_embed(), cfg.vocab)[:, 0]
         return logits, {"k": cache["k"], "v": cache["v"], "length": pos + 1}

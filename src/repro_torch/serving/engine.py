@@ -12,6 +12,8 @@ cache and is decoded with its own ``decode_step`` call at B=1; the
 attention runs the flash kernel and decode attention the paged-decode
 kernel (over an identity-page view of the contiguous cache); an ssm model's
 prefill runs the SSD chunk kernels, a hybrid model's the RG-LRU kernel.
+Prefill runs the prompt alone (B = 1, ``pad_to`` pads only the cache), so
+in a MoE model no pad token takes an expert's capacity.
 
 Models whose cache is not a per-position K/V cache run unchanged: an
 attention-free model (``n_heads == n_kv_heads == 0``, e.g. mamba2) keeps its

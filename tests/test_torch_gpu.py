@@ -19,7 +19,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import inter_chunk_scan, ssd_chunked_cuda, ssd_output, ssd_states
 from repro_torch.kernels import ops
-from repro_torch.models import attention, build_model
+from repro_torch.models import attention, build_model, moe
 from repro_torch.training.optimizer import OptimizerConfig
 from repro_torch.training.train_step import TrainConfig, init_state, make_train_step
 
@@ -27,8 +27,8 @@ torch.set_num_threads(1)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-# the grids of tests/test_kernels.py, plus the serving shapes of qwen3-4b and
-# the head_dim-256 shapes of recurrentgemma-9b
+# the grids of tests/test_kernels.py, plus the serving shapes of qwen3-4b,
+# the head_dim-256 shapes of recurrentgemma-9b and the MoE configs' head shapes
 FLASH_GRID = [
     (2, 256, 8, 4, 64, True, None),
     (1, 384, 4, 1, 128, True, None),
@@ -42,9 +42,17 @@ FLASH_GRID = [
     (1, 256, 16, 1, 256, True, None),
     (2, 200, 16, 1, 256, True, None),
     (1, 512, 16, 1, 256, True, 128),
+    # granite-moe-1b-a400m (hd 64, 16 query heads on 8 kv heads) and
+    # qwen2-moe-a2.7b (hd 128, 16 on 16: no grouping) at prompt 128, and ragged
+    (1, 128, 16, 8, 64, True, None),
+    (1, 128, 16, 16, 128, True, None),
+    (2, 77, 16, 8, 64, True, None),
+    (2, 77, 16, 16, 128, True, None),
 ]
 PAGED_GRID = [(2, 8, 4, 64, 16, 128, 4), (4, 4, 1, 128, 32, 128, 6), (2, 16, 8, 64, 16, 256, 3),
-              (1, 32, 8, 128, 4, 64, 4), (2, 16, 1, 256, 16, 64, 6), (1, 16, 1, 256, 32, 64, 32)]
+              (1, 32, 8, 128, 4, 64, 4), (2, 16, 1, 256, 16, 64, 6), (1, 16, 1, 256, 32, 64, 32),
+              (1, 16, 8, 64, 4, 64, 4), (1, 16, 16, 128, 4, 64, 4), (3, 16, 8, 64, 12, 64, 4),
+              (3, 16, 16, 128, 12, 64, 4)]
 
 
 def _tol(dtype):
@@ -673,3 +681,41 @@ def test_stacked_gradients_land_layer_by_layer_on_card(cuda, remat):
     for l, filled in seen.items():
         assert filled[l + 1:] == [True] * (cfg.n_layers - l - 1), (l, filled)
     assert all(wq.grad[j].abs().sum() > 0 for j in range(cfg.n_layers))
+
+
+# (arch, capacity_factor, T): both MoE configs at full width, one layer of
+# random weights, a 128-token prefill (N 128: C 64, no expert overflows) and
+# decode (T 1); then granite-moe at capacity_factor 0.3 and T 256, where the
+# experts overflow and each loses its slot-0 token (tests/test_torch_moe.py)
+MOE_CASES = [("granite-moe-1b-a400m", 1.25, 128), ("qwen2-moe-a2.7b", 1.25, 128), ("granite-moe-1b-a400m", 1.25, 1),
+             ("qwen2-moe-a2.7b", 1.25, 1), ("granite-moe-1b-a400m", 0.3, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("arch,cf,T", MOE_CASES)
+def test_moe_ffn_on_card_matches_cpu(cuda, arch, cf, T, dtype):
+    """``moe_ffn`` on CUDA tensors against the same function on the CPU
+    (checked against the reference there): y within the kernels' tolerance,
+    the same expert table, aux within fp32 noise; and two calls on the card
+    give the same bits (the combine adds in a fixed order, no atomics)."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=1, capacity_factor=cf)
+    lp = moe.moe_params(cfg, 1, lambda *s: torch.nn.Parameter(torch.zeros(s), requires_grad=False))
+    moe.init_moe_(lp, cfg, torch.Generator().manual_seed(0))
+    lp = {k: v[0] for k, v in lp.items()}
+    x = _randn(np.random.default_rng(5), (1, T, cfg.d_model), dtype, "cpu")
+    y, aux = moe.moe_ffn(lp, x, cfg)
+    lg = {k: v.to(cuda) for k, v in lp.items()}
+    yg, auxg = moe.moe_ffn(lg, x.to(cuda), cfg)
+    yg2, auxg2 = moe.moe_ffn(lg, x.to(cuda), cfg)
+    assert torch.equal(yg, yg2) and torch.equal(auxg, auxg2)
+    _close(y, yg, dtype)
+    np.testing.assert_allclose(aux.item(), auxg.item(), rtol=1e-5)
+    xt = x.reshape(T, -1)
+    top_p, top_i = torch.topk(torch.softmax(xt.float() @ lp["router"], -1), cfg.top_k, dim=-1)
+    C = moe.capacity(T, cfg.top_k, cfg.n_experts, cf)
+    table, _, _ = moe.dispatch(top_i, top_p, cfg.n_experts, C)
+    table_g, _, _ = moe.dispatch(top_i.to(cuda), top_p.to(cuda), cfg.n_experts, C)
+    assert torch.equal(table, table_g.cpu())
+    if cf < 1:
+        assert (table[:, 0] == T).any()  # an overflowing expert gave up its slot 0

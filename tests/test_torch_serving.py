@@ -205,6 +205,49 @@ def test_engine_tokens_equal_reference_engine_recurrentgemma():
     assert (engine.prefill_calls, engine.decode_calls) == (2, 10)
 
 
+# (arch, config overrides, prompt lengths, max_len): both MoE configs
+# reduced, then granite-moe at capacity_factor 0.3 with prompts of 200 and 150
+# tokens (C = 64 slots per expert against ~100 and ~75 routed): prefill
+# overflows, and the dropped slots take slot 0's token with them
+# (tests/test_torch_moe.py)
+MOE_ENGINE_CASES = {"granite-moe-1b-a400m": ("granite-moe-1b-a400m", {}, (8, 5, 12), 64),
+                    "qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", {}, (8, 5, 12), 64),
+                    "granite-moe-overflow": ("granite-moe-1b-a400m", {"capacity_factor": 0.3}, (200, 150), 256)}
+
+
+@pytest.mark.parametrize("case", list(MOE_ENGINE_CASES))
+def test_engine_tokens_equal_reference_engine_moe(case, monkeypatch):
+    """The MoE family through the unchanged engine (prefill at B = 1, the
+    cache padded to max_len, so no pad token takes an expert's slot): same
+    weights, same prompts, fp32: the greedy tokens are identical."""
+    from repro_torch.models import moe
+
+    arch, over, lens, max_len = MOE_ENGINE_CASES[case]
+    kw = dict(over, dtype="float32")
+    rcfg, cfg = ref_get_config(arch).reduced(**kw), get_config(arch).reduced(**kw)
+    params = ref_build_model(rcfg).init(jax.random.key(7))
+    model = build_model(cfg, "cpu")
+    model.load_state_dict(flatten(params_from_jax(jax.tree.map(np.asarray, params))))
+    overflowed, dispatch = [], moe.dispatch
+
+    def counting(top_i, top_p, E, C):
+        overflowed.append(bool((torch.bincount(top_i.flatten(), minlength=E) > C).any()))
+        return dispatch(top_i, top_p, E, C)
+
+    monkeypatch.setattr(moe, "dispatch", counting)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in lens]
+    ref_engine = RefServingEngine(rcfg, params, max_batch=2, max_len=max_len, page_size=16)
+    engine = ServingEngine(model, max_batch=2, max_len=max_len, page_size=16)
+    for rid, p in enumerate(prompts):
+        ref_engine.submit(RefRequest(rid, p, max_new_tokens=6))
+        engine.submit(Request(rid, p, max_new_tokens=6))
+    ref_done = {r.req_id: r.tokens for r in ref_engine.run_until_drained()}
+    done = {r.req_id: r.tokens for r in engine.run_until_drained()}
+    assert done == ref_done and all(len(t) == 6 for t in done.values())
+    assert any(overflowed) == (case == "granite-moe-overflow")
+
+
 # The bf16 path that serves against the reference's (ROADMAP Queue C 11):
 # the port's engine and the JAX engine on the reduced configs in bf16
 # compute, same fp32 weights, same prompts, 16 greedy tokens each. Measured:
@@ -214,8 +257,16 @@ def test_engine_tokens_equal_reference_engine_recurrentgemma():
 # first divergence measured, as ties may flip with the thread count or build.
 BF16_CASES = {"llama3-8b": (dict(d_model=64, n_layers=2, vocab=256, vocab_pad_multiple=64), (8, 5, 12), 64, 1),
               "mamba2-1.3b": ({}, (40, 53, 66), 128, 2),
-              "recurrentgemma-9b": (dict(n_layers=5), (40, 50), 80, 3)}
+              "recurrentgemma-9b": (dict(n_layers=5), (40, 50), 80, 3),
+              "granite-moe-1b-a400m": ({}, (8, 5, 12), 64, 4),
+              "qwen2-moe-a2.7b": ({}, (8, 5, 12), 64, 4)}
 BF16_AGREE = 4
+# qwen2-moe (reduced): request 0 differs at token 1 (request 1 at 9), where
+# the JAX engine's two best logits are equal (2.828125 each, so its argmax
+# takes the lower id) and the port's differ by one bf16 ulp (2.84375 against
+# 2.828125; the logits' max|Δ| 0.026, within the bf16 tolerance): a tie, so
+# only the prefill's token is asserted for it. granite-moe never differs.
+BF16_AGREE_BY_ARCH = {"qwen2-moe-a2.7b": 1}
 
 
 @pytest.mark.parametrize("arch", list(BF16_CASES))
@@ -240,4 +291,5 @@ def test_bf16_engine_tokens_against_reference_engine(arch, capsys):
     with capsys.disabled():
         print(f"\n{arch} bf16: first differing token per request (None: never) {first}")
     assert all(len(done[rid]) == len(ref_done[rid]) == 16 for rid in done)
-    assert all(done[rid][:BF16_AGREE] == ref_done[rid][:BF16_AGREE] for rid in done)
+    agree = BF16_AGREE_BY_ARCH.get(arch, BF16_AGREE)
+    assert all(done[rid][:agree] == ref_done[rid][:agree] for rid in done)

@@ -298,6 +298,40 @@ def test_stacked_gradients_land_layer_by_layer(remat):
 # the other families
 # ---------------------------------------------------------------------------
 
+# (arch, config overrides, T): both MoE configs reduced at B 2; then
+# granite-moe at capacity_factor 0.3 and T 128 (N 256 against C 64: every
+# expert overflows and loses its slot-0 token, tests/test_torch_moe.py)
+MOE_CASES = {"granite-moe-1b-a400m": ("granite-moe-1b-a400m", {}, 24),
+             "qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", {}, 24),
+             "granite-moe-overflow": ("granite-moe-1b-a400m", {"capacity_factor": 0.3}, 128)}
+
+
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_moe_loss_and_gradients_match_reference(case):
+    """The MoE family's loss (cross entropy + router_aux_coef · aux), its
+    aux_loss metric, and every parameter's gradient, the router's through
+    the gates and the aux loss, with remat."""
+    arch, over, T = MOE_CASES[case]
+    rcfg = ref_get_config(arch).reduced(dtype="float32", **over)
+    cfg = get_config(arch).reduced(dtype="float32", **over)
+    ref = ref_build_model(rcfg)
+    params = ref.init(jax.random.key(5))
+    model = build_model(cfg, "cpu")
+    model.load_state_dict(flatten(params_from_jax(jax.tree.map(np.asarray, params))))
+    model.requires_grad_(True)
+    batch = RefPipeline(cfg.vocab, 2, T, seed=4).next_batch()
+    (rloss, rmet), rgrad = jax.value_and_grad(
+        lambda p: ref.loss(p, jax.tree.map(jnp.asarray, batch), remat=True), has_aux=True)(params)
+    loss, met = model.loss({k: torch.from_numpy(v) for k, v in batch.items()})
+    loss.backward()
+    assert set(met) == set(rmet) and met["aux_loss"].item() > 0
+    for k in ("loss", "aux_loss", "accuracy", "tokens"):
+        _close(rmet[k], met[k])
+    grads = flatten({k: v.grad for k, v in dict(model.named_parameters()).items()})
+    for key, g in flatten(jax.tree.map(np.asarray, rgrad)).items():
+        assert grads[key] is not None and grads[key].abs().sum() > 0, key
+        _close(g, grads[key])
+
 @pytest.mark.parametrize("arch,n_layers", [("mamba2-1.3b", 2), ("recurrentgemma-9b", 5)])
 def test_ssm_and_hybrid_loss_match_reference(arch, n_layers):
     """mamba2 and recurrentgemma (the RRA group and an RR remainder): loss,

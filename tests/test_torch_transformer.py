@@ -35,7 +35,13 @@ VARIANTS = {
     "llama3-8b-bias-parallel-learned": (
         "llama3-8b", {"attention_bias": True, "parallel_block": True, "pos_emb": "learned"}),
     "llama3-8b-gelu-layernorm": ("llama3-8b", {"activation": "gelu", "norm_type": "layernorm"}),
+    "granite-moe-1b-a400m": ("granite-moe-1b-a400m", {}),
+    "qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", {}),
+    "phi3-medium-14b": ("phi3-medium-14b", {}),
+    "command-r-plus-104b": ("command-r-plus-104b", {}),
+    "internvl2-76b": ("internvl2-76b", {}),
 }
+NEW_ARCHS = ["granite-moe-1b-a400m", "qwen2-moe-a2.7b", "phi3-medium-14b", "command-r-plus-104b", "internvl2-76b"]
 
 
 def _pair(variant, dtype, seed=0):
@@ -53,7 +59,7 @@ def _close(a, b, atol):
     np.testing.assert_allclose(np.asarray(a, np.float32), b.float().numpy(), atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "llama3-8b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "llama3-8b", *NEW_ARCHS])
 def test_config_matches_reference(arch):
     assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(ref_get_config(arch))
     r, t = ref_get_config(arch).reduced(dtype="float32"), get_config(arch).reduced(dtype="float32")
@@ -65,19 +71,22 @@ def test_config_matches_reference(arch):
 def test_forward_logits_fp32(variant):
     cfg, ref, params, model = _pair(variant, "float32")
     tokens = np.random.default_rng(1).integers(0, cfg.vocab, size=(2, 12)).astype(np.int32)
-    ref_logits, _ = ref.forward(params, jnp.asarray(tokens))
+    ref_logits, ref_aux = ref.forward(params, jnp.asarray(tokens))
     logits, aux = model(torch.from_numpy(tokens).long())
     assert logits.shape == (2, 12, cfg.padded_vocab) and logits.dtype == torch.float32
     _close(ref_logits, logits, FP32_ATOL)
+    _close(ref_aux, aux, 2e-5)  # the MoE layers' summed aux loss; 0 in the other families
+    assert aux.dtype == torch.float32 and (aux.item() > 0) == (cfg.family == "moe")
     if cfg.padded_vocab != cfg.vocab:
         assert (logits[..., cfg.vocab:] == -1e30).all()
 
 
-def test_forward_with_vision_embeds():
-    cfg, ref, params, model = _pair("qwen3-4b", "float32")
+@pytest.mark.parametrize("variant", ["qwen3-4b", "internvl2-76b"])
+def test_forward_with_vision_embeds(variant):
+    cfg, ref, params, model = _pair(variant, "float32")
     rng = np.random.default_rng(5)
     tokens = rng.integers(0, cfg.vocab, size=(2, 10)).astype(np.int32)
-    vis = rng.normal(size=(2, 4, cfg.d_model)).astype(np.float32)
+    vis = rng.normal(size=(2, cfg.n_vision_patches or 4, cfg.d_model)).astype(np.float32)
     ref_logits, _ = ref.forward(params, jnp.asarray(tokens), jnp.asarray(vis))
     logits, _ = model(torch.from_numpy(tokens).long(), torch.from_numpy(vis))
     _close(ref_logits, logits, FP32_ATOL)
@@ -119,8 +128,9 @@ def test_prefill_decode_fp32(variant):
     _prefill_decode(*_pair(variant, "float32"), FP32_ATOL)
 
 
-def test_prefill_decode_bf16():
-    _prefill_decode(*_pair("qwen3-4b", "bfloat16"), BF16_ATOL)
+@pytest.mark.parametrize("variant", ["qwen3-4b", "granite-moe-1b-a400m", "qwen2-moe-a2.7b"])
+def test_prefill_decode_bf16(variant):
+    _prefill_decode(*_pair(variant, "bfloat16"), BF16_ATOL)
 
 
 def test_init_shapes_and_stds():
@@ -136,9 +146,26 @@ def test_init_shapes_and_stds():
     assert (model.embed[cfg.vocab:] == 0).all() and (model.ln1 == 0).all()
 
 
-def test_moe_family_raises():
-    cfg = get_config("qwen3-4b").reduced(family="moe")
-    with pytest.raises(NotImplementedError, match="Queue A"):
+def test_audio_family_raises():
+    """whisper's family is not ported: the registry names its ROADMAP item,
+    and TransformerLM refuses it."""
+    cfg = get_config("qwen3-4b").reduced(family="audio")
+    with pytest.raises(NotImplementedError, match="Queue A item 16"):
         build_model(cfg, "cpu")
     with pytest.raises(NotImplementedError):
         TransformerLM(cfg, "cpu")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen2-moe-a2.7b"])
+def test_moe_builds_transformer_with_reference_tree(arch):
+    """The registry builds the MoE family as a TransformerLM whose state_dict
+    keys and shapes are the reference's tree (``moe.*`` in place of
+    ``mlp.*``), and whose init draws every leaf."""
+    cfg = get_config(arch).reduced(dtype="float32")
+    model = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    assert isinstance(model, TransformerLM) and not hasattr(model, "mlp")
+    ref_shapes = jax.eval_shape(ref_build_model(ref_get_config(arch).reduced(dtype="float32")).init,
+                                jax.random.key(0))
+    shapes = {k: tuple(v.shape) for k, v in flatten(ref_shapes).items()}
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == shapes
+    assert all(model.moe[k].abs().sum() > 0 for k in model.moe)
