@@ -29,7 +29,13 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    bf16 (timed in bf16); both attention kernels at the MoE configs' heads
    (granite-moe-1b-a400m: head_dim 64, 2 query heads per kv head;
    qwen2-moe-a2.7b: head_dim 128, no grouping) in fp32 and bf16, then
-   checked and timed at their serving shapes;
+   checked and timed at their serving shapes; both at whisper-small's
+   (head_dim 64, no grouping) in fp32 and bf16, on inputs whose outputs are
+   O(1) and where an unmasked key past S would show: flash non-causal over the
+   encoder's 1500 frames and for cross-attention (T 128 against S 1500),
+   causal at the decoder's prompt, paged decode over the 1500-slot cross
+   cache (one page of 1500) and the 256-slot self cache, each timed, with a
+   CUDA-graph replay of the cross shapes;
 4. model parity, card (kernels) against CPU (plain path), fp32, one set of
    seeded weights drawn on the card, full width cut in depth: qwen3-4b (2
    layers) with a 64-token prefill, mamba2-1.3b (2 layers) with a 512-token
@@ -37,7 +43,9 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    with a 2048-token prefill, each followed by 4 teacher-forced decode steps
    (recurrentgemma's wrap its 2048-slot ring), granite-moe-1b-a400m and
    qwen2-moe-a2.7b (2 layers each, MoE FFN in torch ops on both sides) with
-   a 64-token prefill, logits compared; then the
+   a 64-token prefill, whisper-small (2 encoder and 2 decoder layers) with
+   seeded frame embeddings over its 1500 positions and a 64-token prefill,
+   logits compared; then the
    bf16 path that serves (bf16 weights), card against CPU at the same
    depths and prompts, recorded and not gated: the logits' max|Δ| and the
    first of 8 greedy decode steps whose tokens differ;
@@ -47,7 +55,9 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    recurrentgemma-9b (8 requests, prompt 2048, max_len 2112: decode
    overwrites ring slots), then granite-moe-1b-a400m and qwen2-moe-a2.7b
    (24 layers each; 8 requests, prompt 128, 32 new tokens, max batch 4,
-   max_len 256); before each run every launch count is set to 0,
+   max_len 256), then whisper-small (12 + 12 layers, the same requests,
+   zero frames as the engine serves); before each run every launch count
+   is set to 0,
    and after it each kernel's count is checked against the layers of its
    kind times the prefill or decode calls, and peak memory against 80 GB;
 6. training qwen3-4b: (a) the gradient check, card (flash kernel forward,
@@ -57,7 +67,10 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    max|Δ| over its max|g| ≤ 1e-3 in fp32 and ≤ 1e-2 in bf16
    (``launch/grad_check.py``, which also reads planted flash faults), and
    granite-moe-1b-a400m the same way in fp32 (the router's gradient through
-   the gates and the aux loss, every leaf nonzero); (b) full width
+   the gates and the aux loss, every leaf nonzero), and whisper-small at 2 +
+   2 layers in fp32 (``ops.Attention``'s backward non-causal with T ≠ S in
+   cross-attention; its key biases read over the model's scale, see
+   ``grad_check.compare``); (b) full width
    and depth (36 layers, 4.02 B parameters, fp32 masters, bf16 compute,
    AdamW, remat), global batch 4 × 512 in 2 microbatches, 4 steps through
    ``make_train_step``, every launch count set to 0 just before: a finite
@@ -100,7 +113,7 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import inter_chunk_scan, ssd_chunked_cuda, ssd_output, ssd_states  # noqa: E402
 from repro_torch.launch import grad_check, serve, train  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import attention, build_model  # noqa: E402
 from repro_torch.training.optimizer import OptimizerConfig  # noqa: E402
 from repro_torch.training.train_step import TrainConfig, init_state, make_train_step  # noqa: E402
 from repro_torch.tree import leaves_with_paths  # noqa: E402
@@ -328,6 +341,8 @@ def phase_kernels() -> dict:
     results["paged_decode"]["hd256"] = hd256["paged_decode"]
     for name, by_arch in phase_moe_head_kernels(rng).items():
         results[name].update(by_arch)
+    for name, numbers in phase_whisper_kernels(rng).items():
+        results[name]["whisper-small"] = numbers
     results.update(phase_ssd_kernels(rng))
     results.update(phase_rglru_kernel(rng))
     return results
@@ -564,6 +579,90 @@ def phase_moe_head_kernels(rng) -> dict:
     return out
 
 
+def phase_whisper_kernels(rng) -> dict:
+    """Both attention kernels at whisper-small's shapes (hd 64, 12 query
+    heads on 12 kv heads), new to the card with this slice, in fp32 and
+    bf16: flash non-causal over the encoder's 1500 frames (T = S = 1500) and
+    for cross-attention (T 128 against S 1500), and causal at the decoder's
+    128-token prompt; paged decode over the 1500-slot cross cache (one page
+    of 1500 slots, ``models.attention.identity_page_size``: no power of two
+    divides 1500) at every length 0..1500 in bf16 and at its edges in fp32,
+    and over the 256-slot self cache (pages of 64). Each timed in bf16
+    beside its bound, its plain version and SDPA, and a CUDA-graph replay of
+    the cross shapes. Every input is drawn by ``grad_check.shifted_qkv``:
+    outputs O(1), so that the tolerance is ~3% of them, and a key past S
+    that the kernel left unmasked would take a large share of the softmax
+    (``grad_check --mutants`` reads that fault). Returns {kernel: {shape:
+    numbers}}."""
+    H, K, hd, S = 12, 12, 64, 1500
+    tag = "whisper-small (hd 64, 12 on 12 kv heads)"
+    for dtype in (torch.float32, torch.bfloat16):
+        for T, Sk, causal in ((S, S, False), (128, S, False), (128, 128, True), (77, 300, False)):
+            q, k, v = grad_check.shifted_qkv(rng, T, Sk, dtype)
+            check(f"flash {tag} T {T} S {Sk} causal={causal} {dtype}", flash_attention(q, k, v, causal=causal),
+                  ref.mha_reference(q, k, v, causal=causal), TOL[dtype])
+        q, kc, vc = grad_check.shifted_qkv(rng, 1, 256, dtype)  # the decoder's self cache: pages of 64
+        q, pk, pv = q.view(1, H, hd), kc.view(4, 64, K, hd), vc.view(4, 64, K, hd)
+        pt = torch.arange(4, dtype=torch.int32, device="cuda").view(1, 4)
+        for length in (1, 160, 256):
+            lens = torch.tensor([length], dtype=torch.int32, device="cuda")
+            check(f"paged {tag} self cache of 256, length {length} {dtype}", paged_decode_attention(q, pk, pv, pt, lens),
+                  ref.paged_decode_reference(q, pk, pv, pt, lens), TOL[dtype])
+    dt, es = torch.bfloat16, 2
+    flash = {}
+    for name, T in (("encoder", S), ("cross", 128)):
+        q, k, v = grad_check.shifted_qkv(rng, T, S, dt)
+        err = check(f"flash {tag} {name} shape T {T} S {S}", flash_attention(q, k, v, causal=False),
+                    ref.mha_reference(q, k, v, causal=False), TOL[dt])
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
+        flops = 4 * hd * H * T * S  # non-causal: every (query, key) pair
+        bound_ms, by = bound(nbytes, flops, dt)
+        print(f"  flash {tag} {name} shape, ms per call (sdpa = library yardstick), "
+              f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
+        t = timings(lambda: flash_attention(q, k, v, causal=False), lambda: ref.mha_reference(q, k, v, causal=False),
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt), plain_iters=20)
+        flash[name] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)
+    graph_replay_matches("flash_attention at whisper's cross shape", lambda: flash_attention(q, k, v, causal=False))
+
+    page = attention.identity_page_size(S)
+    paged, errs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kc, vc = grad_check.shifted_qkv(rng, 1, S, dtype)
+        q, pk, pv = q.view(1, H, hd), kc.view(S // page, page, K, hd), vc.view(S // page, page, K, hd)
+        pt = torch.arange(S // page, dtype=torch.int32, device="cuda").view(1, -1)
+        lengths = range(S + 1) if dtype == dt else (0, 1, 15, 16, 17, 127, 128, 129, 1024, 1499, 1500)
+        err = 0.0
+        for length in lengths:
+            lens = torch.tensor([length], dtype=torch.int32, device="cuda")
+            out, expect = paged_decode_attention(q, pk, pv, pt, lens), ref.paged_decode_reference(q, pk, pv, pt, lens)
+            torch.cuda.synchronize()
+            d = (out.float() - expect.float()).abs()
+            if not bool((d <= TOL[dtype][0] + TOL[dtype][1] * expect.float().abs()).all()):
+                raise AssertionError(f"paged decode {tag} cross cache disagrees at length {length}: "
+                                     f"max|d|={d.max().item()}")
+            err = max(err, d.max().item())
+        errs[dtype] = err
+        print(f"  paged {tag} cross cache, one page of {page}, {len(lengths)} lengths in 0..{S} {dtype}: "
+              f"max|d|={err:.3e} atol={TOL[dtype][0]:.0e} ok")
+    lens = torch.tensor([S], dtype=torch.int32, device="cuda")
+    graph_replay_matches("paged_decode_attention over whisper's cross cache",
+                         lambda: paged_decode_attention(q, pk, pv, pt, lens))
+    qs, ks, vs = q.view(1, H, 1, hd), kc.transpose(1, 2), vc.transpose(1, 2)
+    nbytes = 2 * S * K * hd * es + 2 * q.numel() * es + pt.numel() * 4 + 4
+    flops = 4 * H * hd * S
+    bound_ms, by = bound(nbytes, flops, dt)
+    print(f"  paged {tag} over the full 1500-slot cross cache, ms per call (sdpa = library yardstick), "
+          f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
+    t = timings(lambda: paged_decode_attention(q, pk, pv, pt, lens),
+                lambda: ref.paged_decode_reference(q, pk, pv, pt, lens),
+                lambda: F.scaled_dot_product_attention(qs, ks, vs))
+    paged["cross"] = dict(max_abs_err=errs[dt], max_abs_err_fp32=errs[torch.float32], bound_ms=bound_ms,
+                          bound_by=by, **t)
+    flash["decoder_self"], paged["self"] = attention_serving_shapes(rng, "whisper-small", H, K, hd)
+    return {"flash_attention": flash, "paged_decode": paged}
+
+
 def rglru_inputs(rng, B, T, W, dtype, long_memory=False):
     """λ in [0.5, 4] as the model's initialisation, where ∏a over a chunk of
     128 steps is 0 in fp32; with ``long_memory``, tests/test_torch_rglru.py's
@@ -697,6 +796,18 @@ def phase_ssd_kernels(rng) -> dict:
     return results
 
 
+def encoder_layers(cfg) -> str:
+    return f" + {cfg.enc_layers} encoder layers" if cfg.enc_layers else ""
+
+
+def model_inputs(cfg, rng) -> dict:
+    """Prefill's inputs beside the prompt: an audio model's seeded frame
+    embeddings over all ``enc_len`` positions (CPU, fp32)."""
+    if cfg.family != "audio":
+        return {}
+    return {"enc_embeds": torch.from_numpy(rng.normal(size=(1, cfg.enc_len, cfg.d_model)).astype(np.float32))}
+
+
 def phase_parity(arch: str, prompt_len: int, n_layers: int = 2) -> None:
     """Teacher-forced logits, card (kernels) against CPU (plain path), fp32.
 
@@ -712,7 +823,7 @@ def phase_parity(arch: str, prompt_len: int, n_layers: int = 2) -> None:
     copied to the CPU."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype="float32")
+    cfg = grad_check.cut(arch, n_layers, dtype="float32")
     t0 = time.perf_counter()
     gpu = build_model(cfg, "cuda").init(torch.Generator(device="cuda").manual_seed(0))
     cpu = build_model(cfg, "cpu")
@@ -720,10 +831,11 @@ def phase_parity(arch: str, prompt_len: int, n_layers: int = 2) -> None:
     rng = np.random.default_rng(0)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, prompt_len))).long()
     feed = torch.from_numpy(rng.integers(0, cfg.vocab, size=(4, 1, 1))).long()
+    frames = model_inputs(cfg, rng)
     errs, agree = [], []
     with torch.no_grad():
-        lc, cc = cpu.prefill(prompt, pad_to=prompt_len + 192)
-        lg, cg = gpu.prefill(prompt.cuda(), pad_to=prompt_len + 192)
+        lc, cc = cpu.prefill(prompt, **frames, pad_to=prompt_len + 192)
+        lg, cg = gpu.prefill(prompt.cuda(), **{k: v.cuda() for k, v in frames.items()}, pad_to=prompt_len + 192)
         steps = [(lc, lg)]
         for i in range(4):
             lc, cc = cpu.decode_step(cc, feed[i])
@@ -735,7 +847,8 @@ def phase_parity(arch: str, prompt_len: int, n_layers: int = 2) -> None:
             raise AssertionError(f"bad logits: shape {tuple(lg.shape)}")
         errs.append((lc - lg)[:, : cfg.vocab].abs().max().item())
         agree.append(int(lc.argmax()) == int(lg.argmax()))
-    print(f"[4 model parity] {arch} full width, {n_layers} layers, fp32, prefill {prompt_len} + 4 decode: "
+    print(f"[4 model parity] {arch} full width, {n_layers} layers{encoder_layers(cfg)}, fp32, "
+          f"prefill {prompt_len} + 4 decode: "
           f"max|d| per step {['%.2e' % e for e in errs]} tol={PARITY_ATOL:.0e}, "
           f"argmax agree {agree}, {time.perf_counter() - t0:.1f} s")
     if max(errs) > PARITY_ATOL or not all(agree):
@@ -753,16 +866,18 @@ def phase_bf16_record(arch: str, prompt_len: int, n_layers: int = 2, steps: int 
     own argmax. Prints the logits' max|Δ| over the prefill and the steps
     before the tokens first differ, and that first step (None: never). Fails
     only on logits that are not finite or of the wrong shape."""
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    cfg = grad_check.cut(arch, n_layers)
     t0 = time.perf_counter()
     gpu = build_model(cfg, "cuda", param_dtype=torch.bfloat16).init(torch.Generator(device="cuda").manual_seed(0))
     cpu = build_model(cfg, "cpu", param_dtype=torch.bfloat16)
     cpu.load_state_dict(gpu.state_dict())
-    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, size=(1, prompt_len))).long()
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, prompt_len))).long()
+    frames = model_inputs(cfg, rng)
     err, diverged = 0.0, None
     with torch.no_grad():
-        lc, cc = cpu.prefill(prompt, pad_to=prompt_len + 192)
-        lg, cg = gpu.prefill(prompt.cuda(), pad_to=prompt_len + 192)
+        lc, cc = cpu.prefill(prompt, **frames, pad_to=prompt_len + 192)
+        lg, cg = gpu.prefill(prompt.cuda(), **{k: v.cuda() for k, v in frames.items()}, pad_to=prompt_len + 192)
         for step in range(steps + 1):
             lg = lg.cpu()
             if not torch.isfinite(lg).all() or lg.shape != (1, cfg.padded_vocab):
@@ -775,7 +890,8 @@ def phase_bf16_record(arch: str, prompt_len: int, n_layers: int = 2, steps: int 
             if step < steps:
                 lc, cc = cpu.decode_step(cc, torch.tensor([[tc]]))
                 lg, cg = gpu.decode_step(cg, torch.tensor([[tg]], device="cuda"))
-    print(f"[4 bf16 record] {arch} full width, {n_layers} layers, bf16, prefill {prompt_len} + {steps} greedy "
+    print(f"[4 bf16 record] {arch} full width, {n_layers} layers{encoder_layers(cfg)}, bf16, prefill {prompt_len} + "
+          f"{steps} greedy "
           f"decode steps: logits max|d| {err:.3e} before the tokens differ, first differing step {diverged} "
           f"(0 = the prefill's token), {time.perf_counter() - t0:.1f} s")
     del cpu, gpu, cc, cg
@@ -793,6 +909,8 @@ def layers_per_call(cfg) -> dict:
         kinds = p * (L // len(p)) + p[: L % len(p)]
         n_rec, n_attn = kinds.count("R"), kinds.count("A")
         return {"rglru_scan": (n_rec, 0), "flash_attention": (n_attn, 0), "paged_decode": (0, n_attn)}
+    if cfg.family == "audio":  # encoder self; decoder self and cross
+        return {"flash_attention": (cfg.enc_layers + 2 * L, 0), "paged_decode": (0, 2 * L)}
     return {"flash_attention": (L, 0), "paged_decode": (0, L)}
 
 
@@ -840,7 +958,8 @@ def phase_serve() -> dict:
     return {arch: serve_path(arch, prompt_len, max_len)
             for arch, prompt_len, max_len in (("qwen3-4b", 128, 256), ("mamba2-1.3b", 1024, 1280),
                                               ("recurrentgemma-9b", 2048, 2112),
-                                              ("granite-moe-1b-a400m", 128, 256), ("qwen2-moe-a2.7b", 128, 256))}
+                                              ("granite-moe-1b-a400m", 128, 256), ("qwen2-moe-a2.7b", 128, 256),
+                                              ("whisper-small", 128, 256))}
 
 
 class MemoryKV:
@@ -1020,15 +1139,18 @@ def main() -> int:
     phase_parity("recurrentgemma-9b", 2048, n_layers=3)
     phase_parity("granite-moe-1b-a400m", 64)
     phase_parity("qwen2-moe-a2.7b", 64)
+    phase_parity("whisper-small", 64)
     phase_bf16_record("qwen3-4b", 64)
     phase_bf16_record("mamba2-1.3b", 512)
     phase_bf16_record("recurrentgemma-9b", 2048, n_layers=3)
     phase_bf16_record("granite-moe-1b-a400m", 64)
     phase_bf16_record("qwen2-moe-a2.7b", 64)
+    phase_bf16_record("whisper-small", 64)
     by_path = phase_serve()
     phase_grad_check("float32")
     phase_grad_check("bfloat16")
     phase_grad_check("float32", "granite-moe-1b-a400m")
+    phase_grad_check("float32", "whisper-small")
     by_path["qwen3-4b training"] = phase_train_full(smi)
     phase_resume()
     # a kernel's launches: those of the first path that runs it, whose shapes
@@ -1036,7 +1158,7 @@ def main() -> int:
     # the times at another path's shapes (head_dim 256, the MoE heads, the
     # training shape) with that path's count
     sub_paths = {"hd256": "recurrentgemma-9b", "training": "qwen3-4b training",
-                 **{arch: arch for arch, *_ in MOE_HEADS}}
+                 **{arch: arch for arch, *_ in MOE_HEADS}, "whisper-small": "whisper-small"}
     line = {"kernels": []}
     for k in KERNELS:
         counts = {arch: c[k] for arch, c in by_path.items() if k in c}

@@ -2,8 +2,8 @@
 
 Lists the configs that the port builds: dense (llama3-8b, qwen3-4b,
 phi3-medium-14b, command-r-plus-104b), vlm (internvl2-76b), moe
-(granite-moe-1b-a400m, qwen2-moe-a2.7b), ssm (mamba2-1.3b) and hybrid
-(recurrentgemma-9b). whisper-small (audio) arrives with its model.
+(granite-moe-1b-a400m, qwen2-moe-a2.7b), ssm (mamba2-1.3b), hybrid
+(recurrentgemma-9b) and audio (whisper-small).
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ _ARCH_MODULES = {
     "internvl2-76b": "internvl2_76b",
     "mamba2-1.3b": "mamba2_1_3b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "whisper-small": "whisper_small",
 }
 
 ARCH_IDS = list(_ARCH_MODULES)

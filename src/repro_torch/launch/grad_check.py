@@ -4,13 +4,17 @@ in the bf16 flash kernel read there.
     PYTHONPATH=src python -m repro_torch.launch.grad_check            # qwen3-4b, fp32 and bf16 readings
     PYTHONPATH=src python -m repro_torch.launch.grad_check --mutants  # and each planted fault's
     PYTHONPATH=src python -m repro_torch.launch.grad_check --arch granite-moe-1b-a400m
+    PYTHONPATH=src python -m repro_torch.launch.grad_check --arch whisper-small
 
-``--arch`` (qwen3-4b by default; a dense or MoE config) at full width cut to
-2 layers, fp32 masters, compute in the given dtype, one TokenPipeline batch
-(B 2, T 512). The card runs the flash kernel's forward and
-``ops.Attention``'s backward (remat), and for a MoE config the MoE FFN in
-torch ops with the router's gradient through the gates and the aux loss;
-the CPU runs the jnp-body port of attention under autograd. Both take one set of weights,
+``--arch`` (qwen3-4b by default; a dense, MoE or audio config) at full width
+cut to 2 layers (whisper: 2 encoder and 2 decoder layers), fp32 masters,
+compute in the given dtype, one TokenPipeline batch (B 2, T 512; whisper's
+with its 1500 frame embeddings). The card runs the flash kernel's forward
+and ``ops.Attention``'s backward (remat; whisper's encoder and
+cross-attention non-causal, cross-attention at T 512 against S 1500), and
+for a MoE config the MoE FFN in torch ops with the router's gradient through
+the gates and the aux loss; the CPU runs the jnp-body port of attention
+under autograd. Both take one set of weights,
 drawn on the card and copied to the CPU. A reading is the loss |Δ| and, per
 leaf, the max|Δ| of the gradient over that leaf's max|g| on the CPU.
 ``chip_smoke.py`` phase 6a gates both at ``GRAD_RTOL`` of the compute dtype,
@@ -19,8 +23,9 @@ with every leaf's gradient nonzero on both sides.
 ``--mutants`` builds copies of ``csrc/flash_attention.cu`` with one fault
 planted in the bf16 tensor-core kernel each (text substitutions, under
 ``build/flash_mutants/``) and prints for each the forward's max|Δ| over its
-bf16 tolerance at the training shape (> 1 fails phase 3) and the bf16
-gradient reading against the same CPU side: the bf16 gate has to sit
+bf16 tolerance at the training shape and at whisper-small's encoder and
+cross-attention shapes on ``shifted_qkv`` inputs (> 1 fails phase 3) and the
+bf16 gradient reading against the same CPU side: the bf16 gate has to sit
 between the sound kernel's reading and theirs. Needs a CUDA card.
 """
 from __future__ import annotations
@@ -38,6 +43,7 @@ from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import flash_attention as flash_module
 from repro_torch.models import build_model
+from repro_torch.training.trainer import extra_fields
 
 # a leaf's max|Δg| over its max|g|, and the loss |Δ|, card against CPU. In
 # bf16 a leaf's gradient is bf16-quantized, so a difference of one ulp at its
@@ -47,6 +53,12 @@ from repro_torch.models import build_model
 GRAD_RTOL = {"float32": 1e-3, "bfloat16": 1e-2}
 FLASH_BF16_TOL = (2e-2, 1e-2)  # tests/test_kernels.py::_tol, with rtol 1e-2
 TRAIN_SHAPE = (2, 512, 32, 8, 128)  # the training path's flash call: B, T, H, K, hd (causal)
+# whisper-small's non-causal flash calls, (T, S) at H = K = 12, hd 64: the
+# encoder's, and cross-attention of a 128-token prompt; 1500 = 23·64 + 28
+WHISPER_SHAPES = ((1500, 1500), (128, 1500))
+# a leaf whose max|g| on the CPU is below this share of the largest leaf's
+# reads rounding noise only (a key bias's exact gradient is zero)
+NOISE_FLOOR = 1e-6
 
 _MMA_KERNEL = "__global__ void __launch_bounds__(NTM) flash_fwd_mma_kernel("
 MUTANTS = {  # name: (old, new), substituted once in the bf16 tensor-core kernel
@@ -55,11 +67,32 @@ MUTANTS = {  # name: (old, new), substituted once in the bf16 tensor-core kernel
     "no rescale on a new row max": ("const float alpha = exp2f(m_run[hr] - m_new);",
                                     "const float alpha = 1.f;"),
     "softmax scale 1% high": ("const float scale_log2 = sm_scale *", "const float scale_log2 = 1.01f * sm_scale *"),
+    "keys past S unmasked": ("ok = row_ok[hr] && s < kv_end;", "ok = row_ok[hr];"),
 }
 
 
+def cut(arch: str, n_layers: int, **overrides):
+    """``arch`` at full width cut to ``n_layers`` (an encoder too)."""
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=n_layers, enc_layers=min(cfg.enc_layers, n_layers), **overrides)
+
+
+def shifted_qkv(rng, T: int, S: int, dtype=torch.bfloat16, device="cuda", H: int = 12, K: int = 12, hd: int = 64):
+    """q (1, T, H, hd), k and v (1, S, K, hd) for holding attention to a
+    tolerance at whisper's ragged S: q has mean 0.6 and k mean −0.6 in every
+    component, so at hd 64 each real score sits about 2.9 below the 0 that a
+    zero-filled key past S scores, and such a key, left unmasked, takes a
+    large share of its row's softmax; v has mean 1, so outputs are O(1) and
+    the bf16 tolerance 2e-2 + 1e-2·|out| is ~3% of them. From N(0, 1) inputs
+    at S 1500 the outputs are ~0.04, and that tolerance is half of one."""
+    def draw(shape, mean):
+        return torch.from_numpy((rng.normal(size=shape) + mean).astype(np.float32)).to(device, dtype)
+
+    return draw((1, T, H, hd), 0.6), draw((1, S, K, hd), -0.6), draw((1, S, K, hd), 1.0)
+
+
 def models(dtype: str, arch: str = "qwen3-4b", n_layers: int = 2):
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype=dtype)
+    cfg = cut(arch, n_layers, dtype=dtype)
     gpu = build_model(cfg, "cuda").init(torch.Generator(device="cuda").manual_seed(0)).requires_grad_()
     cpu = build_model(cfg, "cpu")
     cpu.load_state_dict(gpu.state_dict())
@@ -67,7 +100,8 @@ def models(dtype: str, arch: str = "qwen3-4b", n_layers: int = 2):
 
 
 def batch(cfg, B: int = 2, T: int = 512) -> dict:
-    return {k: torch.from_numpy(v) for k, v in TokenPipeline(cfg.vocab, B, T, seed=0).next_batch().items()}
+    pipe = TokenPipeline(cfg.vocab, B, T, seed=0, extra_fields=extra_fields(cfg))
+    return {k: torch.from_numpy(v) for k, v in pipe.next_batch().items()}
 
 
 def gradients(model, data: dict) -> tuple[float, dict]:
@@ -81,12 +115,21 @@ def gradients(model, data: dict) -> tuple[float, dict]:
 
 
 def compare(card: tuple[float, dict], cpu: tuple[float, dict]) -> dict:
+    """Each leaf's max|Δg| over its max|g| on the CPU; a leaf under
+    ``NOISE_FLOOR`` of the largest max|g| is read over that largest. Such a
+    leaf's exact gradient is zero, as a key bias's is (a row's softmax does
+    not change when the same q·b_k is added to all its scores), and each side
+    reads rounding noise there (~1e-9 against ~1e-2 elsewhere, in fp32 on
+    the CPU)."""
     (lg, gg), (lc, gc) = card, cpu
     worst, zero = ("", 0.0), []
+    top = max(c.abs().max().item() for c in gc.values())
     for name, c in gc.items():
         g, scale = gg[name], c.abs().max().item()
         if scale == 0 or g.abs().max().item() == 0:
             zero.append(name)
+        if scale < NOISE_FLOOR * top:
+            scale = top
         rel = (g - c).abs().max().item() / scale if scale else float("inf")
         worst = max(worst, (name, rel), key=lambda e: e[1])
     return {"loss_card": lg, "loss_cpu": lc, "loss_abs_err": abs(lg - lc), "worst_leaf": worst[0],
@@ -106,18 +149,29 @@ def run(dtype: str, arch: str = "qwen3-4b") -> dict:
     return compare(gradients(gpu, data), gradients(cpu, data))
 
 
+def spread(q, k, v, causal: bool = True) -> float:
+    """max |flash − plain| / (atol + rtol·|plain|) in bf16."""
+    out = flash_module.flash_attention(q, k, v, causal=causal).float()
+    want = ref.mha_reference(q, k, v, causal=causal).float()
+    atol, rtol = FLASH_BF16_TOL
+    return float(((out - want).abs() / (atol + rtol * want.abs())).max())
+
+
 def forward_spread(seed: int = 0) -> float:
-    """max |flash − plain| / (atol + rtol·|plain|) at the training shape in bf16."""
+    """``spread`` at the training shape, N(0, 1) inputs."""
     B, T, H, K, hd = TRAIN_SHAPE
     rng = np.random.default_rng(seed)
 
     def randn(shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(torch.bfloat16)
 
-    q, k, v = randn((B, T, H, hd)), randn((B, T, K, hd)), randn((B, T, K, hd))
-    out, want = flash_module.flash_attention(q, k, v).float(), ref.mha_reference(q, k, v).float()
-    atol, rtol = FLASH_BF16_TOL
-    return float(((out - want).abs() / (atol + rtol * want.abs())).max())
+    return spread(randn((B, T, H, hd)), randn((B, T, K, hd)), randn((B, T, K, hd)))
+
+
+def whisper_spread(seed: int = 0) -> float:
+    """The larger ``spread`` at ``WHISPER_SHAPES``, non-causal, ``shifted_qkv`` inputs."""
+    rng = np.random.default_rng(seed)
+    return max(spread(*shifted_qkv(rng, T, S), causal=False) for T, S in WHISPER_SHAPES)
 
 
 def build_mutants() -> dict[str, ctypes.CDLL]:
@@ -159,10 +213,11 @@ def mutants() -> list[dict]:
     try:
         for name, lib in libs.items():
             _use(lib)
-            row = {"kernel": name, "forward_spread": forward_spread(),
+            row = {"kernel": name, "forward_spread": forward_spread(), "whisper_spread": whisper_spread(),
                    **compare(gradients(gpu, data), cpu_side)}
             row["gate"] = "pass" if passes(row, "bfloat16") else "fail"
-            print(f"{name:30s} forward max|d|/tol {row['forward_spread']:.4g}, loss |d| "
+            print(f"{name:30s} forward max|d|/tol {row['forward_spread']:.4g} (whisper's shapes "
+                  f"{row['whisper_spread']:.4g}), loss |d| "
                   f"{row['loss_abs_err']:.4g}, worst leaf {row['worst_leaf']} {row['worst_rel_err']:.4g}, "
                   f"zero {row['zero']}, bf16 gradient gate {GRAD_RTOL['bfloat16']:.0e}: {row['gate']}", flush=True)
             rows.append(row)

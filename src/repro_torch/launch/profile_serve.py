@@ -9,14 +9,16 @@ of the serving path, after a warm-up request.
         --requests 4 --prompt-len 2048 --max-new 16 --max-batch 4 --max-len 2112
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch qwen2-moe-a2.7b \
         --requests 4 --prompt-len 128 --max-new 16 --max-batch 4
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch whisper-small \
+        --requests 4 --prompt-len 128 --max-new 16 --max-batch 4
 
 Prints the window's wall time (timed once without the profiler, then run
 again under it), the device's busy time (the sum of its kernel and copy
 times: one stream, so they do not overlap), the busy share, the device
-time by kernel group and of the top kernels, and for a MoE model the
-device time by kernel group inside each part of the path (``PARTS``: the
-whole MoE FFN, and its dispatch, which builds the expert table). The last
-line is the same as one JSON object. Needs a CUDA card.
+time by kernel group and of the top kernels, and the device time by kernel
+group inside each part of the path that runs (``PARTS``: a MoE model's
+whole MoE FFN and its dispatch, which builds the expert table; whisper's
+encoder). The last line is the same as one JSON object. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve
-from repro_torch.models import moe, transformer
+from repro_torch.models import moe, transformer, whisper
 
 GROUPS = [  # (group, substrings of the kernel name), first match wins
     ("flash_attention kernel", ("flash_fwd_mma_kernel", "flash_fwd_kernel")),  # bf16, fp32
@@ -49,6 +51,7 @@ GROUPS = [  # (group, substrings of the kernel name), first match wins
 PARTS = {  # part of the serving path: (module, function) whose launches it covers
     "moe ffn": (transformer, "moe_ffn"),
     "moe dispatch": (moe, "dispatch"),
+    "whisper encoder": (whisper.WhisperModel, "encode"),
 }
 
 

@@ -11,6 +11,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
         --requests 8 --prompt-len 128 --max-new 32 --max-batch 4
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
+        --requests 8 --prompt-len 128 --max-new 32 --max-batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small --reduced --device cpu
+
+whisper-small serves from zero frame embeddings (the engine passes none),
+as the reference engine does.
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Weights are random, drawn
 from seed 0, in bf16 on the device one tensor at a time.

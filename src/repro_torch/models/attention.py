@@ -74,11 +74,14 @@ def full_attention(q, k, v, *, causal: bool = True, window: int | None = None,
 
 def identity_page_size(S: int) -> int:
     """Page size of the identity-page view of a length-``S`` cache: 64, or the
-    largest power of two ≥ 16 that divides ``S``."""
+    largest power of two ≥ 16 that divides ``S``; where none does (whisper's
+    1500-slot cross cache), one page of all ``S`` slots per sequence. The
+    kernel finds a position's page as ``pos / page`` for any page size, and
+    the view is the cache itself whichever is chosen."""
+    if S <= 0:
+        raise ValueError(f"cache length {S} is not positive")
     page = min(64, S & -S)  # S & -S: the largest power of two dividing S
-    if page < 16:
-        raise ValueError(f"cache length {S} has no power-of-two page ≥ 16 dividing it")
-    return page
+    return page if page >= 16 else S
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int | None = None) -> torch.Tensor:

@@ -6,17 +6,19 @@ import torch
 from .mamba2 import Mamba2LM
 from .rglru import GriffinLM
 from .transformer import TransformerLM
+from .whisper import WhisperModel
 
 
 def build_model(cfg, device=None, param_dtype: torch.dtype = torch.float32):
     """dense | moe | vlm → :class:`TransformerLM`, ssm → :class:`Mamba2LM`,
-    hybrid → :class:`GriffinLM`, on ``device`` (``cuda`` by default)."""
+    hybrid → :class:`GriffinLM`, audio → :class:`WhisperModel`, on
+    ``device`` (``cuda`` by default)."""
     if cfg.family in ("dense", "moe", "vlm"):
         return TransformerLM(cfg, device=device, param_dtype=param_dtype)
     if cfg.family == "ssm":
         return Mamba2LM(cfg, device=device, param_dtype=param_dtype)
     if cfg.family == "hybrid":
         return GriffinLM(cfg, device=device, param_dtype=param_dtype)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet: audio (whisper) is ROADMAP Queue A item 16"
-    )
+    if cfg.family == "audio":
+        return WhisperModel(cfg, device=device, param_dtype=param_dtype)
+    raise NotImplementedError(f"unknown family {cfg.family!r}")

@@ -26,6 +26,7 @@ from . import attention as attn_lib
 from .common import (
     apply_rope,
     embed_tokens,
+    gelu_tanh,
     glu_activation,
     init_truncated_normal_,
     layer_view,
@@ -80,8 +81,7 @@ def init_mlp_(mlp: nn.ParameterDict, cfg, generator: torch.Generator) -> None:
 
 def apply_mlp(lp: dict, h: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.activation == "gelu":
-        u = torch.nn.functional.gelu(h @ lp["w_up"].to(h.dtype), approximate="tanh")
-        return u @ lp["w_down"].to(h.dtype)
+        return gelu_tanh(h @ lp["w_up"].to(h.dtype)) @ lp["w_down"].to(h.dtype)
     g = h @ lp["w_gate"].to(h.dtype)
     u = h @ lp["w_up"].to(h.dtype)
     return glu_activation(g, u, cfg.activation) @ lp["w_down"].to(h.dtype)

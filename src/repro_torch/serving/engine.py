@@ -12,6 +12,11 @@ cache and is decoded with its own ``decode_step`` call at B=1; the
 attention runs the flash kernel and decode attention the paged-decode
 kernel (over an identity-page view of the contiguous cache); an ssm model's
 prefill runs the SSD chunk kernels, a hybrid model's the RG-LRU kernel.
+The audio model (whisper) is prefilled with no frame embeddings, so it
+encodes zero frames, as the reference engine's call does; its cache holds
+the decoder's self K/V (``k``/``v``, max_len slots), the cross K/V over the
+encoder's output (``ck``/``cv``, enc_len slots: 55 MB a sequence for
+whisper-small in bf16) and ``length``, and decode attends over both.
 Prefill runs the prompt alone (B = 1, ``pad_to`` pads only the cache), so
 in a MoE model no pad token takes an expert's capacity.
 
@@ -23,8 +28,9 @@ allocated for every layer, as the reference engine does, with
 ``n_kv_heads → max(n_kv_heads, 1)`` and ``head_dim → resolved_head_dim``
 (``d_model // max(n_heads, 1)`` for mamba2; for recurrentgemma-9b at max
 batch 4 and max_len 2112: 272 pages of 64 positions, K and V, 38 layers,
-one kv head of 256, bf16, 677 MB by its shapes). For these models that
-arena is bookkeeping only and is never read.
+one kv head of 256, bf16, 677 MB by its shapes). For every model, these
+and the attention models alike, that arena is bookkeeping only and is
+never read.
 """
 from __future__ import annotations
 

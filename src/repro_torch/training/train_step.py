@@ -86,11 +86,14 @@ def make_train_step(model, train_cfg: TrainConfig):
 
 def make_prefill_step(model, q_chunk: int = 2048):
     """``prefill_step(batch) -> (last-token logits, cache)``; the attention
-    models take ``q_chunk`` and ``vision_embeds``."""
+    models take ``q_chunk`` and ``vision_embeds``, the audio model
+    ``enc_embeds``."""
     attends = hasattr(model, "hidden_states")
 
     @torch.no_grad()
     def prefill_step(batch: dict):
+        if "enc_embeds" in batch:
+            return model.prefill(batch["tokens"], batch["enc_embeds"], q_chunk=q_chunk)
         if not attends:
             return model.prefill(batch["tokens"])
         return model.prefill(batch["tokens"], batch.get("vision_embeds"), q_chunk=q_chunk)

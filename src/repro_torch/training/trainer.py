@@ -37,6 +37,17 @@ from .optimizer import OptimizerConfig
 from .train_step import TrainConfig, init_state, make_train_step
 
 
+def extra_fields(model_cfg) -> dict:
+    """The pipeline's inputs beside the tokens, as the reference trainer's:
+    a vlm model's patch embeddings, an audio model's frame embeddings."""
+    d = model_cfg.d_model
+    if model_cfg.family == "vlm":
+        return {"vision_embeds": ((model_cfg.n_vision_patches, d), np.float32)}
+    if model_cfg.family == "audio":
+        return {"enc_embeds": ((model_cfg.enc_len, d), np.float32)}
+    return {}
+
+
 @dataclass
 class TrainerConfig:
     steps: int = 100
@@ -60,11 +71,8 @@ class Trainer:
         self.store = BVCheckpointStore(store) if store is not None else None
         self.ckpt = (CheckpointManager(self.store, tcfg.ckpt_interval, tcfg.keep_last, tcfg.ckpt_async)
                      if self.store is not None else None)
-        extra = {}
-        if model_cfg.family == "vlm":
-            extra["vision_embeds"] = ((model_cfg.n_vision_patches, model_cfg.d_model), np.float32)
         self.pipeline = TokenPipeline(model_cfg.vocab, tcfg.global_batch, tcfg.seq_len, seed=tcfg.seed,
-                                      extra_fields=extra)
+                                      extra_fields=extra_fields(model_cfg))
         self.state = None
         self.step_times: list[float] = []
         self.straggler_events = 0

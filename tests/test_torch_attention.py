@@ -72,10 +72,12 @@ def test_decode_attention(cache_len, dtype):
     _close(r, t, ATOL[dtype])
 
 
-@pytest.mark.parametrize("S,page", [(256, 64), (48, 16), (96, 32), (64, 64)])
+@pytest.mark.parametrize("S,page", [(256, 64), (48, 16), (96, 32), (64, 64), (1500, 1500), (40, 40)])
 def test_identity_page_view_equals_decode_attention(S, page):
     """The view the CUDA path hands to the paged kernel, through the plain
-    paged_decode_reference, equals the CPU decode body."""
+    paged_decode_reference, equals the CPU decode body: pages of 64 or of a
+    smaller power of two, and one page per sequence where no power of two
+    ≥ 16 divides S (whisper's 1500-slot cross cache)."""
     assert attention.identity_page_size(S) == page
     _, (tq, tkc, tvc) = _decode_inputs("float32", S=S)
     B, _, H, D = tq.shape
@@ -88,10 +90,14 @@ def test_identity_page_view_equals_decode_attention(S, page):
     torch.testing.assert_close(out, attention.decode_attention(tq, tkc, tvc, lens), atol=2e-6, rtol=0)
 
 
-@pytest.mark.parametrize("S", [40, 8, 0])
-def test_identity_page_size_needs_a_power_of_two_page(S):
-    with pytest.raises(ValueError):
-        attention.identity_page_size(S)
+@pytest.mark.parametrize("S,page", [(40, 40), (8, 8), (1500, 1500), (0, None)])
+def test_identity_page_size_falls_back_to_one_page(S, page):
+    """No power of two ≥ 16 divides S: one page of S slots; S 0 has none."""
+    if page is None:
+        with pytest.raises(ValueError):
+            attention.identity_page_size(S)
+    else:
+        assert attention.identity_page_size(S) == page
 
 
 @pytest.mark.parametrize("ring,index", [(False, 5), (False, 15), (True, 21), (False, 30)])

@@ -19,6 +19,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import inter_chunk_scan, ssd_chunked_cuda, ssd_output, ssd_states
 from repro_torch.kernels import ops
+from repro_torch.launch import grad_check
 from repro_torch.models import attention, build_model, moe
 from repro_torch.training.optimizer import OptimizerConfig
 from repro_torch.training.train_step import TrainConfig, init_state, make_train_step
@@ -311,6 +312,87 @@ def test_decode_over_the_ring_view(cuda):
         _close(attention.decode_attention(q, kc, vc, valid), out, "float32")
 
 
+# whisper-small's attention shapes (12 query heads on 12 kv heads of 64):
+# the encoder's self-attention over its 1500 frames, and cross-attention of
+# a 128-token prompt over them, both non-causal
+WHISPER_FLASH = grad_check.WHISPER_SHAPES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("T,S", WHISPER_FLASH)
+def test_flash_kernel_at_whisper_shapes(cuda, T, S, dtype):
+    """On ``grad_check.shifted_qkv`` inputs: outputs O(1), and a key past S
+    left unmasked would take a large share of the softmax."""
+    rng = np.random.default_rng(11)
+    q, k, v = grad_check.shifted_qkv(rng, T, S, DTYPES[dtype], cuda)
+    out = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and out.shape == q.shape
+    _close(ref.mha_reference(q, k, v, causal=False), out, dtype)
+
+
+@pytest.mark.gpu
+def test_decode_attention_over_whisper_cross_cache(cuda, monkeypatch):
+    """whisper's decode cross-attention: ``models.attention.decode_attention``
+    over a (1, 1500, 12, 64) bf16 cache, which no power-of-two page divides,
+    runs the paged-decode kernel over one page of 1500 slots, the cache
+    itself (no copy), card against the CPU body at every length class, on
+    ``grad_check.shifted_qkv`` inputs (outputs O(1))."""
+    rng = np.random.default_rng(12)
+    _, kc, vc = grad_check.shifted_qkv(rng, 1, 1500, torch.bfloat16, "cpu")
+    kg, vg = kc.to(cuda), vc.to(cuda)
+    seen, paged = [], ops.paged_decode
+
+    def spy(q, pk, pv, table, lengths):
+        seen.append((pk.data_ptr() == kg.data_ptr(), pv.data_ptr() == vg.data_ptr(), tuple(pk.shape)))
+        return paged(q, pk, pv, table, lengths)
+
+    monkeypatch.setattr(ops, "paged_decode", spy)
+    launches = paged_decode_attention.launches
+    for dtype in DTYPES:
+        q = grad_check.shifted_qkv(rng, 1, 1, DTYPES[dtype], "cpu")[0]
+        for valid in (1, 64, 1499, 1500):
+            out = attention.decode_attention(q.to(cuda), kg, vg, valid)
+            _close(attention.decode_attention(q, kc, vc, valid), out, dtype)
+    assert paged_decode_attention.launches == launches + 8
+    assert seen == [(True, True, (1, 1500, 12, 64))] * 8
+
+
+@pytest.mark.gpu
+def test_whisper_full_width_on_card_matches_cpu(cuda):
+    """whisper-small at full width, 2 encoder and 2 decoder layers, fp32:
+    seeded frames over all 1500 positions, a 64-token prefill and 2 decode
+    steps, card (flash in the encoder, self- and cross-attention; paged
+    decode over the self and the 1500-slot cross caches) against CPU (the
+    plain path). Weights are drawn on the card and copied to the CPU. Both
+    sides are fp32 but for the bf16 caches, whose rounding of a last-ulp
+    difference can move a logit by far less than the tolerance."""
+    cfg = dataclasses.replace(get_config("whisper-small"), n_layers=2, enc_layers=2, dtype="float32")
+    gpu = build_model(cfg, cuda).init(torch.Generator(device=cuda).manual_seed(0))
+    cpu = build_model(cfg, "cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, 64))).long()
+    frames = torch.from_numpy(rng.normal(size=(1, cfg.enc_len, cfg.d_model)).astype(np.float32))
+    flash, paged = flash_attention.launches, paged_decode_attention.launches
+    with torch.no_grad():
+        lc, cc = cpu.prefill(prompt, frames, pad_to=128)
+        lg, cg = gpu.prefill(prompt.to(cuda), frames.to(cuda), pad_to=128)
+        steps = [(lc, lg)]
+        for tok in (5, 7):
+            lc, cc = cpu.decode_step(cc, torch.tensor([[tok]]))
+            lg, cg = gpu.decode_step(cg, torch.tensor([[tok]], device=cuda))
+            steps.append((lc, lg))
+    assert flash_attention.launches - flash == cfg.enc_layers + 2 * cfg.n_layers
+    assert paged_decode_attention.launches - paged == 2 * 2 * cfg.n_layers
+    for lc, lg in steps:
+        lg = lg.cpu()
+        assert torch.isfinite(lg).all()
+        np.testing.assert_allclose(lc[:, :cfg.vocab].numpy(), lg[:, :cfg.vocab].numpy(), atol=5e-3, rtol=0)
+        assert int(lc.argmax()) == int(lg.argmax())
+
+
 # (B, T, W): tests/test_kernels.py::test_rglru_sweep, a ragged T and W, T
 # under one chunk of 128 steps, and the serving shape of recurrentgemma-9b;
 # then the chunked kernel's edges: T one under and one over a chunk, a
@@ -580,26 +662,29 @@ def test_attention_wrappers_replay_in_cuda_graph(cuda, dtype):
 # training: the flash kernel's gradient, kernels without one, a train step
 # ---------------------------------------------------------------------------
 
-# (B, T, H, K, hd, window, q_chunk of the card's backward): hd 128 and 256,
-# GQA and MQA, T ragged against the kernel's tiles and the backward's chunks
-ATTN_GRAD_GRID = [(2, 77, 8, 2, 128, None, 32), (1, 200, 32, 8, 128, None, 64), (1, 130, 16, 1, 256, None, 48),
-                  (2, 100, 16, 1, 256, 40, 64)]
+# (B, T, S, H, K, hd, causal, window, q_chunk of the card's backward): hd
+# 128 and 256, GQA and MQA, T ragged against the kernel's tiles and the
+# backward's chunks; whisper's cross-attention (non-causal, T 100 against S
+# 300 keys, hd 64, G 1)
+ATTN_GRAD_GRID = [(2, 77, 77, 8, 2, 128, True, None, 32), (1, 200, 200, 32, 8, 128, True, None, 64),
+                  (1, 130, 130, 16, 1, 256, True, None, 48), (2, 100, 100, 16, 1, 256, True, 40, 64),
+                  (2, 100, 300, 12, 12, 64, False, None, 32)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("B,T,H,K,hd,window,q_chunk", ATTN_GRAD_GRID)
-def test_attention_gradients_on_card_match_cpu(cuda, B, T, H, K, hd, window, q_chunk, dtype):
+@pytest.mark.parametrize("B,T,S,H,K,hd,causal,window,q_chunk", ATTN_GRAD_GRID)
+def test_attention_gradients_on_card_match_cpu(cuda, B, T, S, H, K, hd, causal, window, q_chunk, dtype):
     """``full_attention`` on the card (the flash kernel's forward, the
     gradient in torch ops through ``ops.Attention``) against the CPU's
     jnp-body port under autograd, at the same inputs and cotangent."""
     rng = np.random.default_rng(9)
-    host = [_randn(rng, s, dtype, "cpu") for s in ((B, T, H, hd), (B, T, K, hd), (B, T, K, hd))]
+    host = [_randn(rng, s, dtype, "cpu") for s in ((B, T, H, hd), (B, S, K, hd), (B, S, K, hd))]
     w = _randn(rng, (B, T, H, hd), "float32", "cpu")
     grads = {}
     for dev, chunk in ((cuda, q_chunk), (torch.device("cpu"), 2048)):
         q, k, v = (t.to(dev).requires_grad_() for t in host)
-        o = attention.full_attention(q, k, v, causal=True, window=window, q_chunk=chunk)
+        o = attention.full_attention(q, k, v, causal=causal, window=window, q_chunk=chunk)
         assert o.grad_fn is not None
         (o.float() * w.to(dev)).sum().backward()
         grads[dev.type] = [o.detach()] + [t.grad for t in (q, k, v)]

@@ -205,6 +205,29 @@ def test_engine_tokens_equal_reference_engine_recurrentgemma():
     assert (engine.prefill_calls, engine.decode_calls) == (2, 10)
 
 
+def test_engine_tokens_equal_reference_engine_whisper():
+    """The audio family through the unchanged engine: prefill with no frame
+    embeddings (zero frames, as the reference engine serves), the cross K/V
+    over the 16 reduced encoder positions cached beside the self K/V; same
+    weights, same prompts, fp32: the greedy tokens are identical."""
+    kw = dict(dtype="float32")
+    rcfg, cfg = ref_get_config("whisper-small").reduced(**kw), get_config("whisper-small").reduced(**kw)
+    params = ref_build_model(rcfg).init(jax.random.key(9))
+    model = build_model(cfg, "cpu")
+    model.load_state_dict(flatten(params_from_jax(jax.tree.map(np.asarray, params))))
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in (8, 5, 12)]
+    ref_engine = RefServingEngine(rcfg, params, max_batch=2, max_len=64, page_size=16)
+    engine = ServingEngine(model, max_batch=2, max_len=64, page_size=16)
+    for rid, p in enumerate(prompts):
+        ref_engine.submit(RefRequest(rid, p, max_new_tokens=6))
+        engine.submit(Request(rid, p, max_new_tokens=6))
+    ref_done = {r.req_id: r.tokens for r in ref_engine.run_until_drained()}
+    done = {r.req_id: r.tokens for r in engine.run_until_drained()}
+    assert done == ref_done and all(len(t) == 6 for t in done.values())
+    assert (engine.prefill_calls, engine.decode_calls) == (3, 15)
+
+
 # (arch, config overrides, prompt lengths, max_len): both MoE configs
 # reduced, then granite-moe at capacity_factor 0.3 with prompts of 200 and 150
 # tokens (C = 64 slots per expert against ~100 and ~75 routed): prefill
@@ -259,14 +282,19 @@ BF16_CASES = {"llama3-8b": (dict(d_model=64, n_layers=2, vocab=256, vocab_pad_mu
               "mamba2-1.3b": ({}, (40, 53, 66), 128, 2),
               "recurrentgemma-9b": (dict(n_layers=5), (40, 50), 80, 3),
               "granite-moe-1b-a400m": ({}, (8, 5, 12), 64, 4),
-              "qwen2-moe-a2.7b": ({}, (8, 5, 12), 64, 4)}
+              "qwen2-moe-a2.7b": ({}, (8, 5, 12), 64, 4),
+              "whisper-small": ({}, (8, 5, 12), 64, 5)}
 BF16_AGREE = 4
 # qwen2-moe (reduced): request 0 differs at token 1 (request 1 at 9), where
 # the JAX engine's two best logits are equal (2.828125 each, so its argmax
 # takes the lower id) and the port's differ by one bf16 ulp (2.84375 against
 # 2.828125; the logits' max|Δ| 0.026, within the bf16 tolerance): a tie, so
 # only the prefill's token is asserted for it. granite-moe never differs.
-BF16_AGREE_BY_ARCH = {"qwen2-moe-a2.7b": 1}
+# whisper-small (reduced): request 1 differs at token 2, where the JAX
+# engine's two best logits are equal (2.25 each, ids 59 and 241) and the
+# port's differ by one bf16 ulp (2.265625 for 241; the logits' max|Δ|
+# 0.018): a tie, so tokens 0 and 1 are asserted. The others never differ.
+BF16_AGREE_BY_ARCH = {"qwen2-moe-a2.7b": 1, "whisper-small": 2}
 
 
 @pytest.mark.parametrize("arch", list(BF16_CASES))

@@ -138,3 +138,26 @@ def test_launcher_run_takes_a_store_and_main_trains_without_one(tmp_path, capsys
                              "--seq", "16"])
     assert res["status"] == "done" and len(res["metrics"]) == 2
     assert "checkpoints: off" in capsys.readouterr().out
+
+
+def test_whisper_trains_a_step_with_frames_from_the_pipeline():
+    """The reduced whisper through the trainer on the CPU, checkpoints off:
+    the pipeline adds ``enc_embeds`` (B, enc_len, d_model) to each batch, as
+    the reference trainer's, the model's loss receives them, the loss is
+    finite and every parameter moves."""
+    cfg = get_config("whisper-small").reduced(dtype="float32")
+    tr = Trainer(cfg, _tcfg(2), None, device="cpu")
+    seen, loss = [], tr.model.loss
+
+    def spy(batch, **kw):
+        seen.append({k: tuple(v.shape) for k, v in batch.items()})
+        return loss(batch, **kw)
+
+    tr.model.loss = spy
+    tr._init_or_restore()
+    before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}  # run() draws the same
+    res = tr.run()
+    assert res["status"] == "done" and all(torch.isfinite(torch.tensor(m["loss"])) for m in res["metrics"])
+    assert seen[0] == {"tokens": (2, 32), "labels": (2, 32), "enc_embeds": (2, cfg.enc_len, cfg.d_model)}
+    for n, p in tr.model.named_parameters():
+        assert not torch.equal(p.detach(), before[n]), n

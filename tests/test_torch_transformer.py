@@ -15,6 +15,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import flatten, params_from_jax
 from repro_torch.models import build_model
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.whisper import WhisperModel
 
 torch.set_num_threads(1)
 
@@ -146,14 +147,21 @@ def test_init_shapes_and_stds():
     assert (model.embed[cfg.vocab:] == 0).all() and (model.ln1 == 0).all()
 
 
-def test_audio_family_raises():
-    """whisper's family is not ported: the registry names its ROADMAP item,
-    and TransformerLM refuses it."""
-    cfg = get_config("qwen3-4b").reduced(family="audio")
-    with pytest.raises(NotImplementedError, match="Queue A item 16"):
-        build_model(cfg, "cpu")
+def test_audio_family_builds_whisper_with_reference_tree():
+    """The registry builds whisper-small as a WhisperModel whose state_dict
+    keys and shapes are the reference's tree (at full size, on the meta
+    device: no memory), and TransformerLM still refuses the audio family."""
+    cfg = get_config("whisper-small")
+    model = build_model(cfg, "meta")
+    assert isinstance(model, WhisperModel)
+    ref_shapes = jax.eval_shape(ref_build_model(ref_get_config("whisper-small")).init, jax.random.key(0))
+    shapes = {k: tuple(v.shape) for k, v in flatten(ref_shapes).items()}
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == shapes
+    assert shapes["dec_pos"] == (40960, 768) and shapes["enc.attn.wq"] == (12, 768, 768)
+    n = sum(v.numel() for v in model.state_dict().values())
+    assert 0.26e9 < n < 0.28e9, n
     with pytest.raises(NotImplementedError):
-        TransformerLM(cfg, "cpu")
+        TransformerLM(cfg.reduced(), "cpu")
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen2-moe-a2.7b"])
