@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card, end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase below
+    python3 chip_smoke.py --mutants   # phase 3's attention checks on planted faults
 
 Run from the root of a checkout. Phases, in order; any failure exits non-zero:
 
@@ -35,7 +36,11 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    encoder's 1500 frames and for cross-attention (T 128 against S 1500),
    causal at the decoder's prompt, paged decode over the 1500-slot cross
    cache (one page of 1500) and the 256-slot self cache, each timed, with a
-   CUDA-graph replay of the cross shapes;
+   CUDA-graph replay of the cross shapes; every attention input is drawn with
+   O(1) outputs and O(1) scores at its head_dim (``grad_check.shifted_qkv``,
+   ``shifted_pages``), so that the bf16 tolerance is a few percent of an
+   output (``--mutants`` runs these checks on each fault planted in the bf16
+   flash kernel and in paged decode, and every fault has to fail them);
 4. model parity, card (kernels) against CPU (plain path), fp32, one set of
    seeded weights drawn on the card, full width cut in depth: qwen3-4b (2
    layers) with a 64-token prefill, mamba2-1.3b (2 layers) with a 512-token
@@ -49,6 +54,12 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    bf16 path that serves (bf16 weights), card against CPU at the same
    depths and prompts, recorded and not gated: the logits' max|Δ| and the
    first of 8 greedy decode steps whose tokens differ;
+   mesh: the distribution layer (``phase_mesh``): a 1-rank NCCL group and a
+   (1, 1) ``DeviceMesh``; qwen3-4b and granite-moe-1b-a400m (2 layers, bf16)
+   with every ``PerfConfig`` flag on and the KV cache placed on the mesh,
+   greedy tokens equal to the run without a mesh, each explicit path's calls
+   counted; ``compressed_psum`` over a qwen3-4b layer's gradient shapes,
+   card through NCCL bit-equal to the CPU through gloo;
 5. serving: ``repro_torch.launch.serve`` at full width and depth in bf16:
    qwen3-4b (8 requests, prompt 128, 32 new tokens, max batch 4), then
    mamba2-1.3b (8 requests, prompt 1024, max_len 1280), then
@@ -88,10 +99,12 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -103,8 +116,10 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import dist as rdist  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
+from repro_torch.dist.perf import PerfConfig, perf_context  # noqa: E402
 from repro_torch.kernels import _build, decode_attention, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_module  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
@@ -113,15 +128,17 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import inter_chunk_scan, ssd_chunked_cuda, ssd_output, ssd_states  # noqa: E402
 from repro_torch.launch import grad_check, serve, train  # noqa: E402
-from repro_torch.models import attention, build_model  # noqa: E402
+from repro_torch.launch.mesh import H100, make_host_mesh  # noqa: E402
+from repro_torch.models import attention, build_model, moe, transformer  # noqa: E402
+from repro_torch.training import compression  # noqa: E402
 from repro_torch.training.optimizer import OptimizerConfig  # noqa: E402
 from repro_torch.training.train_step import TrainConfig, init_state, make_train_step  # noqa: E402
 from repro_torch.tree import leaves_with_paths  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
 # FLOP/s, fp32 FLOP/s outside the tensor cores
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = H100["hbm_bw"]
+PEAK_FLOPS = {torch.bfloat16: H100["peak_flops_bf16"], torch.float32: H100["peak_flops_fp32"]}
 
 FLASH_GRID = [  # tests/test_kernels.py
     (2, 256, 8, 4, 64, True, None),
@@ -177,17 +194,29 @@ def randn(rng, shape, dtype):
     return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to("cuda", dtype)
 
 
-def check(name, out, expect, tol) -> float:
+# ``--mutants`` sets RECORD to a list: every check appends (name, max|Δ|/tol,
+# max|Δ|) there and raises nothing; TIMED False skips the timings
+RECORD: list | None = None
+TIMED = True
+
+
+def check(name, out, expect, tol, quiet=False) -> float:
     """max|Δ| of kernel output against its plain version; raises past
-    ``tol = (atol, rtol)``."""
+    ``tol = (atol, rtol)`` (records instead under ``--mutants``)."""
     torch.cuda.synchronize()
     atol, rtol = tol
     if out.shape != expect.shape or out.dtype != expect.dtype:
         raise AssertionError(f"{name}: {tuple(out.shape)} {out.dtype} vs plain {tuple(expect.shape)} {expect.dtype}")
     diff = (out.float() - expect.float()).abs()
     err = diff.max().item() if diff.numel() else 0.0
-    ok = bool((diff <= atol + rtol * expect.float().abs()).all())
-    print(f"  {name}: max|d|={err:.3e} atol={atol:.0e} rtol={rtol:.0e} {'ok' if ok else 'FAIL'}")
+    ratio = (diff / (atol + rtol * expect.float().abs())).nan_to_num(nan=float("inf"))
+    ratio = ratio.max().item() if ratio.numel() else 0.0
+    if RECORD is not None:
+        RECORD.append((name, ratio, err))
+        return err
+    ok = ratio <= 1.0
+    if not quiet or not ok:
+        print(f"  {name}: max|d|={err:.3e} atol={atol:.0e} rtol={rtol:.0e} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version (max|d|={err})")
     return err
@@ -233,6 +262,8 @@ def timings(kernel, plain, library=None, iters=100, plain_iters=100) -> dict:
     """``library`` None: no single PyTorch call computes the function. Fewer
     ``iters`` for calls of milliseconds; fewer ``plain_iters`` for a plain
     version of thousands of launches (a CUDA graph holds them all)."""
+    if not TIMED:
+        return {}
     t = dict(ms=device_ms(kernel, iters), plain_ms=device_ms(plain, plain_iters, min(5, plain_iters)),
              library_ms=device_ms(library, iters) if library else None,
              eager_ms=eager_ms(kernel, 2 * iters),
@@ -294,16 +325,28 @@ def phase_build() -> None:
 def phase_kernels() -> dict:
     print("[3 kernels vs plain versions]")
     rng = np.random.default_rng(0)
+    results = phase_attention_kernels(rng)
+    results.update(phase_ssd_kernels(rng))
+    results.update(phase_rglru_kernel(rng))
+    return results
+
+
+def phase_attention_kernels(rng) -> dict:
+    """Every check of the two attention kernels in phase 3 (``--mutants``
+    runs these on each planted fault): the tests/test_kernels.py grids, the
+    edges, and the serving, training, head_dim-256, MoE and whisper shapes,
+    timed there. The inputs are ``grad_check.shifted_qkv`` / ``shifted_pages``
+    draws: outputs and scores O(1) at every head_dim, so that the bf16
+    tolerance is a few percent of an output and a key left unmasked or
+    dropped shows. Returns {kernel: numbers}."""
     for dtype in (torch.float32, torch.bfloat16):
         for B, T, H, K, hd, causal, window in FLASH_GRID:
-            q = randn(rng, (B, T, H, hd), dtype)
-            k, v = randn(rng, (B, T, K, hd), dtype), randn(rng, (B, T, K, hd), dtype)
+            q, k, v = grad_check.shifted_qkv(rng, T, T, dtype, B=B, H=H, K=K, hd=hd)
             check(f"flash {B},{T},{H},{K},{hd} causal={causal} window={window} {dtype}",
                   flash_attention(q, k, v, causal=causal, window=window),
                   ref.mha_reference(q, k, v, causal=causal, window=window), TOL[dtype])
         for B, H, K, hd, P, page, maxp in PAGED_GRID:
-            q = randn(rng, (B, H, hd), dtype)
-            pk, pv = randn(rng, (P, page, K, hd), dtype), randn(rng, (P, page, K, hd), dtype)
+            q, pk, pv = grad_check.shifted_pages(rng, B, H, K, hd, P, page, dtype)
             pt = torch.from_numpy(rng.integers(0, P, size=(B, maxp)).astype(np.int32)).cuda()
             lens = torch.from_numpy(rng.integers(1, maxp * page, size=(B,)).astype(np.int32)).cuda()
             check(f"paged {B},{H},{K},{hd},{P},{page},{maxp} {dtype}",
@@ -320,8 +363,7 @@ def phase_kernels() -> dict:
     B, T, H, K, hd = grad_check.TRAIN_SHAPE
     train_rng = np.random.default_rng(1)  # the later checks keep their inputs
     for dtype in (torch.float32, torch.bfloat16):
-        q = randn(train_rng, (B, T, H, hd), dtype)
-        k, v = randn(train_rng, (B, T, K, hd), dtype), randn(train_rng, (B, T, K, hd), dtype)
+        q, k, v = grad_check.shifted_qkv(train_rng, T, T, dtype, B=B, H=H, K=K, hd=hd)
         err = check(f"flash training shape {B},{T},{H},{K},{hd} causal {dtype}", flash_attention(q, k, v),
                     ref.mha_reference(q, k, v), TOL[dtype])
         results["flash_attention"][f"max_abs_err_training_{str(dtype)[6:]}"] = err
@@ -343,8 +385,6 @@ def phase_kernels() -> dict:
         results[name].update(by_arch)
     for name, numbers in phase_whisper_kernels(rng).items():
         results[name]["whisper-small"] = numbers
-    results.update(phase_ssd_kernels(rng))
-    results.update(phase_rglru_kernel(rng))
     return results
 
 
@@ -388,8 +428,7 @@ def phase_attention_edges(rng) -> None:
     f32 = TOL[torch.float32]  # the partials are fp32 on both sides, from the same inputs
     for dtype in (torch.float32, torch.bfloat16):
         for B, H, K, hd, P, page, maxp, split_len, identity in PAGED_EDGES:
-            q = randn(rng, (B, H, hd), dtype)
-            pk, pv = randn(rng, (P, page, K, hd), dtype), randn(rng, (P, page, K, hd), dtype)
+            q, pk, pv = grad_check.shifted_pages(rng, B, H, K, hd, P, page, dtype)
             if identity:
                 pt = torch.arange(B * maxp, dtype=torch.int32, device="cuda").view(B, maxp)
             else:
@@ -405,12 +444,8 @@ def phase_attention_edges(rng) -> None:
                 expect = ref.paged_decode_reference(q, pk, pv, pt, lens)
                 for i, (name, x, y, tol) in enumerate((("m", m, mr, f32), ("l", l, lr, f32), ("acc", acc, ar, f32),
                                                         ("out", out, expect, TOL[dtype]))):
-                    torch.cuda.synchronize()
-                    d = (x.float() - y.float()).abs()
-                    if x.shape != y.shape or not bool((d <= tol[0] + tol[1] * y.float().abs()).all()):
-                        raise AssertionError(f"paged partials {name} at lengths {lens.tolist()}: "
-                                             f"max|d|={d.max().item() if d.numel() else 0}")
-                    errs[i] = max(errs[i], d.max().item() if d.numel() else 0.0)
+                    errs[i] = max(errs[i], check(f"paged partials {B},{H},{K},{hd} {name} {dtype} at lengths "
+                                                 f"{lens.tolist()}", x, y, tol, quiet=True))
             print(f"  paged partials {B},{H},{K},{hd},{P},{page},{maxp} split {split_len} {dtype}, "
                   f"{len(edges)} length sets: max|d| m {errs[0]:.2e} l {errs[1]:.2e} acc {errs[2]:.2e} "
                   f"out {errs[3]:.2e} ok")
@@ -418,12 +453,13 @@ def phase_attention_edges(rng) -> None:
     for hd in (16, 32, 64, 128, 256):
         for B, T, H, K, causal, window in ((1, 77, 4, 2, True, None), (2, 50, 4, 4, False, None),
                                            (1, 100, 4, 1, True, 5), (1, 130, 8, 2, False, 9)):
-            q = randn(rng, (B, T, H, hd), dt)
-            k, v = randn(rng, (B, T, K, hd), dt), randn(rng, (B, T, K, hd), dt)
+            q, k, v = grad_check.shifted_qkv(rng, T, T, dt, B=B, H=H, K=K, hd=hd)
             check(f"flash bf16 {B},{T},{H},{K},{hd} causal={causal} window={window}",
                   flash_attention(q, k, v, causal=causal, window=window),
                   ref.mha_reference(q, k, v, causal=causal, window=window), TOL[dt])
-        qkv = randn(rng, (2, 70, 12, hd), dt)
+        mu = grad_check.shift_mean(hd)  # q, k and v as shifted_qkv draws them, in one tensor
+        means = torch.tensor([mu] * 8 + [-mu] * 2 + [1.0] * 2).view(1, 1, 12, 1)
+        qkv = (torch.from_numpy(rng.normal(size=(2, 70, 12, hd)).astype(np.float32)) + means).to("cuda", dt)
         q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
         check(f"flash bf16 strided views of one (2,70,12,{hd}) tensor", flash_attention(q, k, v),
               ref.mha_reference(q, k, v), TOL[dt])
@@ -443,12 +479,10 @@ def phase_hd256_kernels(rng) -> dict:
     over the full 2048-slot ring)."""
     for dtype in (torch.float32, torch.bfloat16):
         for B, T, window in ((1, 256, None), (1, 512, 128), (2, 200, None)):
-            q = randn(rng, (B, T, 16, 256), dtype)
-            k, v = randn(rng, (B, T, 1, 256), dtype), randn(rng, (B, T, 1, 256), dtype)
+            q, k, v = grad_check.shifted_qkv(rng, T, T, dtype, B=B, H=16, K=1, hd=256)
             check(f"flash hd 256 {B},{T},16,1 window={window} {dtype}",
                   flash_attention(q, k, v, window=window), ref.mha_reference(q, k, v, window=window), TOL[dtype])
-        q = randn(rng, (2, 16, 256), dtype)
-        pk, pv = randn(rng, (16, 64, 1, 256), dtype), randn(rng, (16, 64, 1, 256), dtype)
+        q, pk, pv = grad_check.shifted_pages(rng, 2, 16, 1, 256, 16, 64, dtype)
         pt = torch.from_numpy(rng.integers(0, 16, size=(2, 6)).astype(np.int32)).cuda()
         lens = torch.tensor([1, 6 * 64], dtype=torch.int32, device="cuda")
         check(f"paged hd 256 2,16,1,16,64,6 {dtype}", paged_decode_attention(q, pk, pv, pt, lens),
@@ -457,8 +491,7 @@ def phase_hd256_kernels(rng) -> dict:
     dt, es = torch.bfloat16, 2
     out = {}
     B, T, H, K, hd, W = 1, 2048, 16, 1, 256, 2048
-    q = randn(rng, (B, T, H, hd), dt)
-    k, v = randn(rng, (B, T, K, hd), dt), randn(rng, (B, T, K, hd), dt)
+    q, k, v = grad_check.shifted_qkv(rng, T, T, dt, B=B, H=H, K=K, hd=hd)
     err = check("flash hd 256 serving shape (window 2048)", flash_attention(q, k, v, window=W),
                 ref.mha_reference(q, k, v, window=W), TOL[dt])
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -473,10 +506,10 @@ def phase_hd256_kernels(rng) -> dict:
     out["flash_attention"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)
 
     S, page = 2048, 64
-    kc, vc = randn(rng, (1, S, K, hd), dt), randn(rng, (1, S, K, hd), dt)
+    q, kc, vc = grad_check.shifted_qkv(rng, 1, S, dt, B=1, H=H, K=K, hd=hd)
+    q = q.view(1, H, hd)
     pk, pv = kc.view(S // page, page, K, hd), vc.view(S // page, page, K, hd)
     pt = torch.arange(S // page, dtype=torch.int32, device="cuda").view(1, -1)
-    q = randn(rng, (1, H, hd), dt)
     err = 0.0
     for length in (0, 1, 63, 64, 1000, 2047, 2048):
         lens = torch.tensor([length], dtype=torch.int32, device="cuda")
@@ -505,8 +538,7 @@ def attention_serving_shapes(rng, arch: str, H: int, K: int, hd: int) -> tuple[d
     dt, es = torch.bfloat16, 2
     tag = f"{arch} (hd {hd}, {H} on {K} kv heads)"
     B, T = 1, 128
-    q = randn(rng, (B, T, H, hd), dt)
-    k, v = randn(rng, (B, T, K, hd), dt), randn(rng, (B, T, K, hd), dt)
+    q, k, v = grad_check.shifted_qkv(rng, T, T, dt, B=B, H=H, K=K, hd=hd)
     err = check(f"flash {tag} serving shape", flash_attention(q, k, v), ref.mha_reference(q, k, v), TOL[dt])
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
@@ -519,19 +551,16 @@ def attention_serving_shapes(rng, arch: str, H: int, K: int, hd: int) -> tuple[d
     flash = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)
 
     S, page = 256, 64
-    kc, vc = randn(rng, (1, S, K, hd), dt), randn(rng, (1, S, K, hd), dt)
+    q, kc, vc = grad_check.shifted_qkv(rng, 1, S, dt, B=1, H=H, K=K, hd=hd)
+    q = q.view(1, H, hd)
     pk, pv = kc.view(S // page, page, K, hd), vc.view(S // page, page, K, hd)
     pt = torch.arange(S // page, dtype=torch.int32, device="cuda").view(1, -1)
-    q = randn(rng, (1, H, hd), dt)
     err = 0.0
     for length in range(0, S + 1):
         lens = torch.tensor([length], dtype=torch.int32, device="cuda")
-        out, expect = paged_decode_attention(q, pk, pv, pt, lens), ref.paged_decode_reference(q, pk, pv, pt, lens)
-        torch.cuda.synchronize()
-        d = (out.float() - expect.float()).abs()
-        if not bool((d <= TOL[dt][0] + TOL[dt][1] * expect.float().abs()).all()):
-            raise AssertionError(f"paged decode {tag} disagrees at length {length}: max|d|={d.max().item()}")
-        err = max(err, d.max().item())
+        err = max(err, check(f"paged decode {tag} serving shape at length {length}",
+                             paged_decode_attention(q, pk, pv, pt, lens),
+                             ref.paged_decode_reference(q, pk, pv, pt, lens), TOL[dt], quiet=True))
     print(f"  paged {tag} serving shape, lengths 0..{S}: max|d|={err:.3e} atol={TOL[dt][0]:.0e} ok")
     L = 160
     lens = torch.tensor([L], dtype=torch.int32, device="cuda")
@@ -564,12 +593,10 @@ def phase_moe_head_kernels(rng) -> dict:
         tag = f"{arch} (hd {hd}, {H} on {K} kv heads)"
         for dtype in (torch.float32, torch.bfloat16):
             for B, T, causal in ((1, 128, True), (2, 77, True), (1, 100, False)):
-                q = randn(rng, (B, T, H, hd), dtype)
-                k, v = randn(rng, (B, T, K, hd), dtype), randn(rng, (B, T, K, hd), dtype)
+                q, k, v = grad_check.shifted_qkv(rng, T, T, dtype, B=B, H=H, K=K, hd=hd)
                 check(f"flash {tag} {B},{T} causal={causal} {dtype}", flash_attention(q, k, v, causal=causal),
                       ref.mha_reference(q, k, v, causal=causal), TOL[dtype])
-            q = randn(rng, (3, H, hd), dtype)
-            pk, pv = randn(rng, (12, 64, K, hd), dtype), randn(rng, (12, 64, K, hd), dtype)
+            q, pk, pv = grad_check.shifted_pages(rng, 3, H, K, hd, 12, 64, dtype)
             pt = torch.from_numpy(rng.integers(0, 12, size=(3, 4)).astype(np.int32)).cuda()
             lens = torch.tensor([1, 130, 256], dtype=torch.int32, device="cuda")
             check(f"paged {tag} 3,12 pages of 64, lengths 1/130/256 {dtype}",
@@ -635,13 +662,9 @@ def phase_whisper_kernels(rng) -> dict:
         err = 0.0
         for length in lengths:
             lens = torch.tensor([length], dtype=torch.int32, device="cuda")
-            out, expect = paged_decode_attention(q, pk, pv, pt, lens), ref.paged_decode_reference(q, pk, pv, pt, lens)
-            torch.cuda.synchronize()
-            d = (out.float() - expect.float()).abs()
-            if not bool((d <= TOL[dtype][0] + TOL[dtype][1] * expect.float().abs()).all()):
-                raise AssertionError(f"paged decode {tag} cross cache disagrees at length {length}: "
-                                     f"max|d|={d.max().item()}")
-            err = max(err, d.max().item())
+            err = max(err, check(f"paged decode {tag} cross cache at length {length} {dtype}",
+                                 paged_decode_attention(q, pk, pv, pt, lens),
+                                 ref.paged_decode_reference(q, pk, pv, pt, lens), TOL[dtype], quiet=True))
         errs[dtype] = err
         print(f"  paged {tag} cross cache, one page of {page}, {len(lengths)} lengths in 0..{S} {dtype}: "
               f"max|d|={err:.3e} atol={TOL[dtype][0]:.0e} ok")
@@ -898,6 +921,121 @@ def phase_bf16_record(arch: str, prompt_len: int, n_layers: int = 2, steps: int 
     torch.cuda.empty_cache()
 
 
+# the cache holds 256 slots, identity pages of 64: the paged-decode shape
+# that phase 3's serving checks hold at both models' heads, every length
+MESH_PROMPT, MESH_STEPS, MESH_CACHE = 64, 8, 256
+EXPLICIT_PATHS = {"V9 row_parallel_einsum": transformer.row_parallel_einsum,
+                  "V3 sharded_decode_update_attend": attention.sharded_decode_update_attend,
+                  "V2 moe_ffn_local": moe.moe_ffn_local}
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_greedy(model, prompt, mesh, flags) -> tuple[list, torch.Tensor]:
+    """Prefill and ``MESH_STEPS`` greedy decode steps, bf16: without a mesh,
+    or under ``mesh`` and ``flags`` with the KV cache placed on it by the
+    model's ``cache_axes``. Returns (tokens, logits of every step)."""
+    ctx = contextlib.ExitStack()
+    if mesh is not None:
+        ctx.enter_context(rdist.mesh_context(mesh))
+        ctx.enter_context(perf_context(flags))
+    tokens, logits = [], []
+    with ctx, torch.no_grad():
+        lg, cache = model.prefill(prompt, pad_to=MESH_CACHE)
+        if mesh is not None:
+            cache = rdist.distribute_tree(cache, mesh, model.cache_axes())
+            if not rdist.is_dtensor(cache["k"]):
+                raise AssertionError("the KV cache was not placed on the mesh")
+        for step in range(MESH_STEPS + 1):
+            if not torch.isfinite(lg).all() or lg.shape != (1, model.cfg.padded_vocab):
+                raise AssertionError(f"bad logits at step {step}: shape {tuple(lg.shape)}")
+            tok = int(lg[:, : model.cfg.vocab].argmax())
+            tokens.append(tok)
+            logits.append(lg.float().cpu())
+            if step < MESH_STEPS:
+                lg, cache = model.decode_step(cache, torch.tensor([[tok]], device="cuda"))
+    return tokens, torch.cat(logits)
+
+
+def phase_mesh(smi: str) -> None:
+    """Phase ``mesh``: the distribution layer on the card. A 1-rank NCCL
+    process group (with gloo beside it for CPU tensors) and a (1, 1)
+    ``DeviceMesh`` ("data", "model"); under it, with every ``PerfConfig``
+    flag on, qwen3-4b and granite-moe-1b-a400m at full width cut to 2
+    layers, bf16 as served: prefill 64 + 8 greedy decode steps with the KV
+    cache (``MESH_CACHE`` slots) placed on the mesh, whose tokens must equal
+    the same run's without a mesh. At one rank V3 takes its dense path on the placed cache and V2
+    routes the whole batch as its one data shard, as the reference's do,
+    while V9's reduce-scatter and all-gather run through NCCL; each explicit
+    path's calls are counted against the layers that make them. Then
+    ``compressed_psum`` over a qwen3-4b layer's gradient shapes on CUDA
+    tensors through NCCL, bit-equal to the same call on the CPU through
+    gloo. Raises on any mismatch."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    dist.init_process_group("cuda:nccl,cpu:gloo", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh((1, 1), ("data", "model"), "cuda")
+        flags = PerfConfig(**{f.name: True for f in dataclasses.fields(PerfConfig)})
+        rng = np.random.default_rng(0)
+        for arch in ("qwen3-4b", "granite-moe-1b-a400m"):
+            cfg = grad_check.cut(arch, 2)
+            model = build_model(cfg, "cuda", param_dtype=torch.bfloat16).init(
+                torch.Generator(device="cuda").manual_seed(0))
+            prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, MESH_PROMPT))).long().cuda()
+            want, want_logits = mesh_greedy(model, prompt, None, flags)
+            for fn in EXPLICIT_PATHS.values():
+                fn.mesh_calls = 0
+            got, logits = mesh_greedy(model, prompt, mesh, flags)
+            calls = {name: fn.mesh_calls for name, fn in EXPLICIT_PATHS.items()}
+            L = cfg.n_layers
+            expect = {"V9 row_parallel_einsum": L + (0 if cfg.family == "moe" else L * (1 + MESH_STEPS)),
+                      "V3 sharded_decode_update_attend": L * MESH_STEPS,
+                      "V2 moe_ffn_local": L * (1 + MESH_STEPS) if cfg.family == "moe" else 0}
+            err = (logits - want_logits)[:, : cfg.vocab].abs().max().item()
+            print(f"[mesh] {arch} full width, {L} layers, bf16, (1, 1) mesh over NCCL, every PerfConfig flag on: "
+                  f"prefill {MESH_PROMPT} + {MESH_STEPS} greedy steps over {MESH_CACHE} cache slots, tokens {got} "
+                  f"{'equal' if got == want else 'DIFFER from'} the run without a mesh, logits max|d| {err:.3e}, "
+                  f"explicit-path calls {calls} (expected {expect}) [{smi}]")
+            if got != want or calls != expect:
+                raise AssertionError(f"{arch} under the mesh: tokens {got} vs {want}, calls {calls} vs {expect}")
+            del model
+            torch.cuda.empty_cache()
+        cfg = get_config("qwen3-4b")
+        d, ff, qd, kd = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.resolved_head_dim, \
+            cfg.n_kv_heads * cfg.resolved_head_dim
+        shapes = {"wq": (d, qd), "wk": (d, kd), "wv": (d, kd), "wo": (qd, d), "w_gate": (d, ff), "w_up": (d, ff),
+                  "w_down": (ff, d), "ln1": (d,), "ln2": (d,), "q_norm": (cfg.resolved_head_dim,)}
+        g = torch.Generator(device="cuda").manual_seed(1)
+        grads = {k: torch.randn(s, generator=g, device="cuda") * 1e-3 for k, s in shapes.items()}
+        grads["ln1"][: 2 * compression.BLOCK] = 0.0  # all-zero blocks
+        err = {k: torch.randn(s, generator=g, device="cuda") * 1e-6 for k, s in shapes.items()}
+        t1 = time.perf_counter()
+        total, new_err = compression.compressed_psum(grads, err, mesh.get_group("data"))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t1
+        total_h, err_h = compression.compressed_psum({k: v.cpu() for k, v in grads.items()},
+                                                     {k: v.cpu() for k, v in err.items()}, dist.group.WORLD)
+        differ = [k for k in shapes if not (torch.equal(total[k].cpu(), total_h[k])
+                                            and torch.equal(new_err[k].cpu(), err_h[k]))]
+        n = sum(v.numel() for v in grads.values())
+        worst = max((total_h[k] + err_h[k] - grads[k].cpu() - err[k].cpu()).abs().max().item() for k in shapes)
+        print(f"[mesh] compressed_psum over a qwen3-4b layer's gradient shapes ({n} elements), CUDA tensors "
+              f"through NCCL against CPU tensors through gloo: {'bit-equal' if not differ else f'DIFFER at {differ}'}"
+              f", sum + carried error vs the input max|d| {worst:.3e}, {card_s:.3f} s on the card; phase "
+              f"{time.perf_counter() - t0:.1f} s")
+        if differ:
+            raise AssertionError(f"compressed_psum: card and CPU differ at {differ}")
+    finally:
+        dist.destroy_process_group()
+
+
 def layers_per_call(cfg) -> dict:
     """{kernel: (launches per prefill call, per decode call)}: one per layer
     of the kernel's kind; kernels not listed launch never."""
@@ -1088,7 +1226,7 @@ def resume_check() -> int:
     against 2 steps, then a new trainer resuming from the store for 2 more.
     Prints one JSON line; exits non-zero unless every leaf is bit-equal."""
     torch.use_deterministic_algorithms(True)
-    cfg = dataclasses.replace(get_config("qwen3-4b"), n_layers=1)
+    cfg = grad_check.cut("qwen3-4b", 1)
     t0 = time.perf_counter()
 
     def trainer_run(store, steps):
@@ -1127,6 +1265,66 @@ def phase_resume() -> dict:
     return out
 
 
+def attention_readings() -> list:
+    """Phase 3's attention checks, recorded: [(check, max|Δ|/tol, max|Δ|)]."""
+    global RECORD
+    RECORD = []
+    try:
+        phase_attention_kernels(np.random.default_rng(0))
+        return RECORD
+    finally:
+        RECORD = None
+
+
+def mutants_main() -> int:
+    """``chip_smoke.py --mutants``: phase 3's attention checks on the kernels
+    as built and on every planted fault (``grad_check.MUTANTS`` in the bf16
+    flash kernel, ``grad_check.PAGED_MUTANTS`` in paged decode), each built
+    into a library of its own. Prints, per kernel, the checks it fails and
+    its largest max|Δ|/tol, and writes the checks each passes to
+    ``build/mutants.json``; exits non-zero unless the kernels as built pass
+    every check and every mutant fails at least one."""
+    global TIMED
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script drives the port on a card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, smi = phase_device()
+    phase_build()
+    TIMED = False
+    t0 = time.perf_counter()
+    libs = {kernel: grad_check.build_mutants(kernel) for kernel in ("flash_attention", "paged_decode")}
+    print(f"[mutants] built {sum(map(len, libs.values()))} mutants in {time.perf_counter() - t0:.1f} s")
+    rows, ok = [], True
+    runs = [("as built", None, None)] + [(name, kernel, lib) for kernel, muts in libs.items()
+                                          for name, lib in muts.items()]
+    for name, kernel, lib in runs:
+        built = _build.library(kernel) if kernel else None
+        if kernel:
+            grad_check.use(lib, kernel)
+        try:
+            rec = attention_readings()
+        finally:
+            if kernel:
+                grad_check.use(built, kernel)
+        fails = [r for r in rec if r[1] > 1.0]
+        worst = max(rec, key=lambda r: r[1])
+        row = {"mutant": name, "kernel": kernel, "checks": len(rec), "failed": len(fails),
+               "max_ratio": worst[1], "max_abs_err": worst[2], "at": worst[0],
+               "failed_dtypes": sorted({"bf16" if "bfloat16" in r[0] or "torch" not in r[0] else "fp32"
+                                        for r in fails}),
+               "passed_checks": [r[0] for r in rec if r[1] <= 1.0] if kernel else []}
+        rows.append(row)
+        ok &= (len(fails) == 0) if kernel is None else (len(fails) > 0)
+        print(f"[mutant] {name} ({kernel or 'both kernels'}): fails {len(fails)} of {len(rec)} checks, "
+              f"max|d|/tol {worst[1]:.4g} (max|d| {worst[2]:.4g}) at {worst[0]} [{smi}]", flush=True)
+    out = _build.BUILD_DIR / "mutants.json"
+    out.write_text(json.dumps(rows, indent=1))
+    print(f"[mutants] every check's name, per mutant, in {out}")
+    print(json.dumps({"mutants": [{k: v for k, v in r.items() if k != "passed_checks"} for r in rows]}))
+    return 0 if ok else 1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on a card", file=sys.stderr)
@@ -1146,6 +1344,7 @@ def main() -> int:
     phase_bf16_record("granite-moe-1b-a400m", 64)
     phase_bf16_record("qwen2-moe-a2.7b", 64)
     phase_bf16_record("whisper-small", 64)
+    phase_mesh(smi)
     by_path = phase_serve()
     phase_grad_check("float32")
     phase_grad_check("bfloat16")
@@ -1177,4 +1376,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(resume_check() if sys.argv[1:] == ["--resume-check"] else main())
+    modes = {"--resume-check": resume_check, "--mutants": mutants_main}
+    sys.exit(modes[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in modes else main())

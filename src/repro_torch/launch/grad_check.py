@@ -22,11 +22,13 @@ with every leaf's gradient nonzero on both sides.
 
 ``--mutants`` builds copies of ``csrc/flash_attention.cu`` with one fault
 planted in the bf16 tensor-core kernel each (text substitutions, under
-``build/flash_mutants/``) and prints for each the forward's max|Δ| over its
-bf16 tolerance at the training shape and at whisper-small's encoder and
-cross-attention shapes on ``shifted_qkv`` inputs (> 1 fails phase 3) and the
-bf16 gradient reading against the same CPU side: the bf16 gate has to sit
-between the sound kernel's reading and theirs. Needs a CUDA card.
+``build/flash_mutants/``) and prints for each the bf16 gradient reading
+against the same CPU side: the bf16 gate has to sit between the sound
+kernel's reading and theirs. Needs a CUDA card. ``PAGED_MUTANTS`` plants
+faults in ``csrc/paged_decode.cu`` the same way. The forward errors of
+every flash and paged-decode mutant at each phase-3 attention shape come
+from ``chip_smoke.py --mutants``, which writes them to
+``build/mutants.json``.
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import TokenPipeline
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build
+from repro_torch.kernels import decode_attention as paged_module
 from repro_torch.kernels import flash_attention as flash_module
 from repro_torch.models import build_model
 from repro_torch.training.trainer import extra_fields
@@ -71,24 +74,56 @@ MUTANTS = {  # name: (old, new), substituted once in the bf16 tensor-core kernel
 }
 
 
+PAGED_MUTANTS = {  # name: (old, new), substituted once in csrc/paged_decode.cu (fp32 and bf16 alike)
+    "combine drops split 0": ("const float w = expf(ml[s * 2 * G] - m_max);",
+                              "const float w = s == 0 ? 0.f : expf(ml[s * 2 * G] - m_max);"),
+    "last key tile of a split dropped": ("const int ntiles = (t1 - t0 + TILE - 1) / TILE;",
+                                         "const int ntiles = (t1 - t0 - 1) / TILE;"),
+    "length mask one past the end": ("const int len = max(0, min(lengths[b], a.maxp * a.page));",
+                                     "const int len = max(0, min(lengths[b] + 1, a.maxp * a.page));"),
+    "wrong page (page id + 1, clamped)": ("sPid[i] = min(max(page_table[b * a.pt_sb + first_page + i], 0), a.P - 1);",
+                                          "sPid[i] = min(max(page_table[b * a.pt_sb + first_page + i] + 1, 0), a.P - 1);"),
+}
+
+
 def cut(arch: str, n_layers: int, **overrides):
     """``arch`` at full width cut to ``n_layers`` (an encoder too)."""
     cfg = get_config(arch)
     return dataclasses.replace(cfg, n_layers=n_layers, enc_layers=min(cfg.enc_layers, n_layers), **overrides)
 
 
-def shifted_qkv(rng, T: int, S: int, dtype=torch.bfloat16, device="cuda", H: int = 12, K: int = 12, hd: int = 64):
-    """q (1, T, H, hd), k and v (1, S, K, hd) for holding attention to a
-    tolerance at whisper's ragged S: q has mean 0.6 and k mean −0.6 in every
-    component, so at hd 64 each real score sits about 2.9 below the 0 that a
-    zero-filled key past S scores, and such a key, left unmasked, takes a
-    large share of its row's softmax; v has mean 1, so outputs are O(1) and
-    the bf16 tolerance 2e-2 + 1e-2·|out| is ~3% of them. From N(0, 1) inputs
-    at S 1500 the outputs are ~0.04, and that tolerance is half of one."""
-    def draw(shape, mean):
-        return torch.from_numpy((rng.normal(size=shape) + mean).astype(np.float32)).to(device, dtype)
+def shift_mean(hd: int) -> float:
+    """The q mean (k's is its negative) that puts each score 2.88 below the
+    0 of a zero-filled key at head_dim ``hd``: a score averages
+    −mean²·hd/√hd, 0.6 at hd 64, 0.505 at 128, 0.424 at 256."""
+    return 0.6 * (64 / hd) ** 0.25
 
-    return draw((1, T, H, hd), 0.6), draw((1, S, K, hd), -0.6), draw((1, S, K, hd), 1.0)
+
+def shifted(rng, shape, mean: float, dtype=torch.bfloat16, device="cuda") -> torch.Tensor:
+    return torch.from_numpy((rng.normal(size=shape) + mean).astype(np.float32)).to(device, dtype)
+
+
+def shifted_qkv(rng, T: int, S: int, dtype=torch.bfloat16, device="cuda", H: int = 12, K: int = 12, hd: int = 64,
+                B: int = 1):
+    """q (B, T, H, hd), k and v (B, S, K, hd) for holding attention to a
+    tolerance: q has mean ``shift_mean(hd)`` and k its negative in every
+    component, so each real score sits about 2.9 below the 0 that a
+    zero-filled key past S scores (such a key, left unmasked, takes a large
+    share of its row's softmax) and scores stay O(1) at every head_dim; v has
+    mean 1, so outputs are O(1) and the bf16 tolerance 2e-2 + 1e-2·|out| is
+    ~3% of them. From N(0, 1) inputs the outputs are ~√(e/S): 0.04 at S 1500,
+    where that tolerance is half of one."""
+    mu = shift_mean(hd)
+    return (shifted(rng, (B, T, H, hd), mu, dtype, device), shifted(rng, (B, S, K, hd), -mu, dtype, device),
+            shifted(rng, (B, S, K, hd), 1.0, dtype, device))
+
+
+def shifted_pages(rng, B: int, H: int, K: int, hd: int, P: int, page: int, dtype=torch.bfloat16, device="cuda"):
+    """``shifted_qkv``'s draws for paged decode: q (B, H, hd) and the page
+    pools k and v (P, page, K, hd)."""
+    mu = shift_mean(hd)
+    return (shifted(rng, (B, H, hd), mu, dtype, device), shifted(rng, (P, page, K, hd), -mu, dtype, device),
+            shifted(rng, (P, page, K, hd), 1.0, dtype, device))
 
 
 def models(dtype: str, arch: str = "qwen3-4b", n_layers: int = 2):
@@ -149,43 +184,24 @@ def run(dtype: str, arch: str = "qwen3-4b") -> dict:
     return compare(gradients(gpu, data), gradients(cpu, data))
 
 
-def spread(q, k, v, causal: bool = True) -> float:
-    """max |flash − plain| / (atol + rtol·|plain|) in bf16."""
-    out = flash_module.flash_attention(q, k, v, causal=causal).float()
-    want = ref.mha_reference(q, k, v, causal=causal).float()
-    atol, rtol = FLASH_BF16_TOL
-    return float(((out - want).abs() / (atol + rtol * want.abs())).max())
-
-
-def forward_spread(seed: int = 0) -> float:
-    """``spread`` at the training shape, N(0, 1) inputs."""
-    B, T, H, K, hd = TRAIN_SHAPE
-    rng = np.random.default_rng(seed)
-
-    def randn(shape):
-        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(torch.bfloat16)
-
-    return spread(randn((B, T, H, hd)), randn((B, T, K, hd)), randn((B, T, K, hd)))
-
-
-def whisper_spread(seed: int = 0) -> float:
-    """The larger ``spread`` at ``WHISPER_SHAPES``, non-causal, ``shifted_qkv`` inputs."""
-    rng = np.random.default_rng(seed)
-    return max(spread(*shifted_qkv(rng, T, S), causal=False) for T, S in WHISPER_SHAPES)
-
-
-def build_mutants() -> dict[str, ctypes.CDLL]:
-    """One library per mutant, one ``nvcc`` each, all started together."""
-    src = (_build.CSRC / _build.SOURCES["flash_attention"]).read_text()
-    head, tail = src.split(_MMA_KERNEL)
-    out = _build.BUILD_DIR / "flash_mutants"
+def build_mutants(kernel: str = "flash_attention") -> dict[str, ctypes.CDLL]:
+    """One library per mutant of ``kernel`` ("flash_attention": ``MUTANTS``,
+    in the bf16 tensor-core kernel; "paged_decode": ``PAGED_MUTANTS``), one
+    ``nvcc`` each, all started together."""
+    src = (_build.CSRC / _build.SOURCES[kernel]).read_text()
+    if kernel == "flash_attention":
+        head, tail = src.split(_MMA_KERNEL)
+        head, mutants = head + _MMA_KERNEL, MUTANTS
+    else:
+        head, tail, mutants = "", src, PAGED_MUTANTS
+    out = _build.BUILD_DIR / f"{kernel}_mutants"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, (old, new)) in enumerate(MUTANTS.items()):
+    for i, (name, (old, new)) in enumerate(mutants.items()):
         if tail.count(old) != 1:
-            raise RuntimeError(f"mutant {name!r}: {old!r} is not once in the tensor-core kernel")
+            raise RuntimeError(f"mutant {name!r}: {old!r} is not once in {kernel}")
         cu, so = out / f"m{i}.cu", out / f"m{i}.so"
-        cu.write_text(head + _MMA_KERNEL + tail.replace(old, new))
+        cu.write_text(head + tail.replace(old, new))
         procs[name] = (subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
                                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     libs = {}
@@ -197,13 +213,19 @@ def build_mutants() -> dict[str, ctypes.CDLL]:
     return libs
 
 
-def _use(lib: ctypes.CDLL) -> None:
-    _build._loaded["flash_attention"] = lib
-    flash_module._fn = None
+def use(lib: ctypes.CDLL, kernel: str = "flash_attention") -> None:
+    """Route ``kernel``'s wrapper to ``lib`` (a mutant, or the library as built)."""
+    _build._loaded[kernel] = lib
+    if kernel == "flash_attention":
+        flash_module._fn = None
+    else:
+        paged_module._fn = None
 
 
 def mutants() -> list[dict]:
-    """The sound kernel's and each mutant's bf16 readings, against one CPU side."""
+    """The sound kernel's and each flash mutant's bf16 gradient gate readings,
+    against one CPU side. Their forward errors at every phase-3 attention
+    shape are ``chip_smoke.py --mutants``'s, in ``build/mutants.json``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     libs = {"as built": _build.library("flash_attention"), **build_mutants()}
     cfg, gpu, cpu = models("bfloat16")
@@ -212,17 +234,15 @@ def mutants() -> list[dict]:
     rows = []
     try:
         for name, lib in libs.items():
-            _use(lib)
-            row = {"kernel": name, "forward_spread": forward_spread(), "whisper_spread": whisper_spread(),
-                   **compare(gradients(gpu, data), cpu_side)}
+            use(lib)
+            row = {"kernel": name, **compare(gradients(gpu, data), cpu_side)}
             row["gate"] = "pass" if passes(row, "bfloat16") else "fail"
-            print(f"{name:30s} forward max|d|/tol {row['forward_spread']:.4g} (whisper's shapes "
-                  f"{row['whisper_spread']:.4g}), loss |d| "
+            print(f"{name:30s} loss |d| "
                   f"{row['loss_abs_err']:.4g}, worst leaf {row['worst_leaf']} {row['worst_rel_err']:.4g}, "
                   f"zero {row['zero']}, bf16 gradient gate {GRAD_RTOL['bfloat16']:.0e}: {row['gate']}", flush=True)
             rows.append(row)
     finally:
-        _use(libs["as built"])
+        use(libs["as built"])
     return rows
 
 

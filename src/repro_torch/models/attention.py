@@ -8,6 +8,12 @@ backward is the same gradient written out in torch ops), and
 :func:`decode_attention` runs the paged-decode kernel over an identity-page
 view of the contiguous cache (a view, not a copy).
 
+Two §Perf variants (:mod:`repro_torch.dist.perf`) live here: V4, growing
+causal key slices per query chunk in the CPU body (the flash kernel skips
+masked tiles already), and V3/V5, :func:`sharded_decode_update_attend`, a
+flash-decode over a cache whose sequence dim is split over the ``model``
+mesh dim, combined across its ranks with ``torch.distributed``.
+
 Shapes: q (B, T, H, D); k/v (B, S, K, D) with H = K·G (GQA groups).
 """
 from __future__ import annotations
@@ -16,6 +22,8 @@ import math
 
 import torch
 
+from repro_torch import dist as rdist
+from repro_torch.dist.perf import perf
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -65,6 +73,22 @@ def full_attention(q, k, v, *, causal: bool = True, window: int | None = None,
 
     if T <= q_chunk:
         out = block(qg, 0)
+    elif causal and perf().causal_chunk_growth:
+        # §Perf V4: query chunk i only attends keys [lo, (i+1)·c), lo rounded
+        # down to 128: growing slices halve the FLOPs of full-width chunks
+        if T % q_chunk:
+            raise ValueError(f"T={T} is not a multiple of q_chunk={q_chunk}")
+        outs = []
+        for i in range(T // q_chunk):
+            hi = (i + 1) * q_chunk
+            lo = max(0, i * q_chunk - window + 1) if window is not None else 0
+            lo = (lo // 128) * 128
+            s = _gqa_scores(qg[:, i * q_chunk:hi], k[:, lo:hi])
+            m = _mask(i * q_chunk + torch.arange(q_chunk, device=q.device),
+                      lo + torch.arange(hi - lo, device=q.device), causal, window)
+            p = torch.softmax(torch.where(m, s, NEG_INF), dim=-1).to(v.dtype)
+            outs.append(_gqa_out(p, v[:, lo:hi]))
+        out = torch.cat(outs, dim=1)
     else:
         if T % q_chunk:
             raise ValueError(f"T={T} is not a multiple of q_chunk={q_chunk}")
@@ -133,9 +157,80 @@ def update_cache(cache, new, index, ring: bool = False):
 
 
 def sharded_decode_update_attend(q, k_cache, v_cache, k_new, v_new, pos):
-    """Cache update + decode attention. Only the single-device path of the
-    reference is ported; its split over a ``model`` mesh axis comes with the
-    distributed slice. Returns (out (B,1,H,D), k_cache, v_cache)."""
-    kc = update_cache(k_cache, k_new, pos)
-    vc = update_cache(v_cache, v_new, pos)
-    return decode_attention(q, kc, vc, pos + 1), kc, vc
+    """Cache update + decode attention, with the cache's sequence dim split
+    over the ``model`` mesh dim (§Perf V3/V5): each rank writes the new K/V
+    if it owns position ``pos`` and computes fp32 partial online-softmax
+    statistics (m, l, acc) over its local keys; the ranks combine them with
+    an all-reduce MAX of m and an all-reduce SUM of the rescaled l and acc,
+    (B,H) and (B,H,hd) values, not the cache.
+
+    q (B,1,H,D), k_new/v_new (B,1,K,D): every rank's global values.
+    k_cache/v_cache (B,S,K,D): plain tensors, or DTensors placed by the
+    model's ``cache_axes`` (each rank holds its shard). Without a mesh, on a
+    ``model`` dim of 1, or where it does not divide S, the dense path, as
+    the reference: over a placed cache, on this rank's shard of the batch
+    and of the KV heads (``act_kv`` takes ``model`` when ``kv_seq`` cannot),
+    the output gathered back. Where ``model`` splits S the cache must be
+    placed with S on it. Returns (out (B,1,H,D), k_cache, v_cache), the
+    caches updated in place. Forward only.
+    ``sharded_decode_update_attend.mesh_calls`` counts the calls on a
+    placed cache.
+    """
+    mesh = rdist.active_mesh()
+    B, S, K, D = k_cache.shape
+    H = q.shape[2]
+    n = rdist.mesh_shape(mesh).get("model", 1) if mesh is not None else 1
+    split = n > 1 and S % n == 0
+    if not rdist.is_dtensor(k_cache):
+        if split:
+            raise ValueError("a cache split over the model ranks must be placed on the mesh (distribute_tree "
+                             "with the model's cache_axes)")
+        kc = update_cache(k_cache, k_new, pos)
+        vc = update_cache(v_cache, v_new, pos)
+        return decode_attention(q, kc, vc, pos + 1), kc, vc
+
+    import torch.distributed as dist
+
+    rdist.no_autograd("sharded_decode_update_attend", q, k_new, v_new)
+    sharded_decode_update_attend.mesh_calls += 1
+    cm = k_cache.device_mesh
+    bs, ss, ks, ds = rdist.placement_spec(k_cache)
+    kc, vc = k_cache.to_local(), v_cache.to_local()
+    if (tuple(v_cache.placements) != tuple(k_cache.placements) or ds
+            or (ss != ("model",) if split else kc.shape[1] != S)):
+        raise ValueError(f"cache placed {k_cache.placements}: S {S} over {n} model ranks")
+    G = H // K
+    b, kh = rdist.shard_slice(cm, bs, B), rdist.shard_slice(cm, ks, K)
+    q, k_new, v_new = q[b, :, kh.start * G:kh.stop * G], k_new[b, :, kh], v_new[b, :, kh]
+    if not split:  # the dense path on this rank's shard
+        update_cache(kc, k_new, pos)
+        update_cache(vc, v_new, pos)
+        out = decode_attention(q, kc, vc, pos + 1)
+    else:
+        S_l = S // n
+        s0 = cm.get_local_rank("model") * S_l
+        if s0 <= pos < s0 + S_l:  # this rank owns the slot
+            update_cache(kc, k_new, pos - s0)
+            update_cache(vc, v_new, pos - s0)
+        # partial flash statistics over the local keys, fp32
+        K_l = kc.shape[2]
+        qg = q.reshape(-1, 1, K_l, G, D) * (1.0 / math.sqrt(D))
+        s = _gqa_scores(qg, kc)  # (B_l,K_l,G,1,S_l)
+        valid = (s0 + torch.arange(S_l, device=q.device)) < pos + 1
+        s = torch.where(valid, s, NEG_INF)
+        m = s.amax(dim=-1)  # (B_l,K_l,G,1)
+        p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+        l = p.sum(dim=-1)
+        acc = torch.einsum("bkgts,bskd->btkgd", p, vc.float())  # (B_l,1,K_l,G,D)
+        # the combine across the model ranks
+        m_g = rdist.all_reduce_axes(m.clone(), cm, "model", dist.ReduceOp.MAX)
+        corr = torch.exp(m - m_g)
+        l_g = rdist.all_reduce_axes(l * corr, cm, "model", dist.ReduceOp.SUM)
+        acc_g = rdist.all_reduce_axes(acc * corr.permute(0, 3, 1, 2)[..., None], cm, "model", dist.ReduceOp.SUM)
+        l_g = torch.where(l_g == 0.0, 1.0, l_g)
+        out = (acc_g / l_g.permute(0, 3, 1, 2)[..., None]).reshape(-1, 1, K_l * G, D).to(q.dtype)
+    out = rdist.all_gather_axes(out, cm, ks, 2)
+    return rdist.all_gather_axes(out, cm, bs, 0), k_cache, v_cache
+
+
+sharded_decode_update_attend.mesh_calls = 0

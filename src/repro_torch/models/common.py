@@ -10,6 +10,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import Axes
+
 
 def init_truncated_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:
     """``std · truncated_normal(-2, 2)`` in place. Drawn in fp32 one leading
@@ -107,6 +109,10 @@ def glu_activation(gate: torch.Tensor, up: torch.Tensor, kind: str) -> torch.Ten
 # embeddings + logits
 # ---------------------------------------------------------------------------
 
+def embed_axes() -> Axes:
+    return Axes("vocab", "param_embed")
+
+
 def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return emb[tokens].to(dtype)
 
@@ -182,3 +188,40 @@ def layer_view(p: torch.Tensor, l: int) -> torch.Tensor:
     if torch.is_grad_enabled() and p.requires_grad:
         return _LayerSlice.apply(p, l)
     return p[l]
+
+
+# ---------------------------------------------------------------------------
+# named tensors for remat (§Perf V1)
+# ---------------------------------------------------------------------------
+
+_name_op = None
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` marked by ``name`` for :func:`save_only_these_names`, the
+    counterpart of ``jax.ad_checkpoint.checkpoint_name``: a copy made by an
+    op of its own, which a selective-checkpoint policy can recognise (its
+    gradient passes through)."""
+    global _name_op
+    if _name_op is None:
+        @torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+        def op(x: torch.Tensor, name: str) -> torch.Tensor:
+            return x.clone()
+
+        op.register_fake(lambda x, name: torch.empty_like(x))
+        op.register_autograd(lambda ctx, grad: (grad, None), setup_context=lambda ctx, inputs, output: None)
+        _name_op = op
+    return _name_op(x, name)
+
+
+def save_only_these_names(*names: str):
+    """A ``context_fn`` for ``torch.utils.checkpoint.checkpoint`` that saves
+    the tensors marked by :func:`checkpoint_name` with one of ``names`` and
+    recomputes everything else in the backward."""
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    def policy(ctx, op, *args, **kwargs):
+        named = _name_op is not None and op is torch.ops.repro_torch.checkpoint_name.default and args[1] in names
+        return CheckpointPolicy.MUST_SAVE if named else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)

@@ -22,8 +22,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import Axes
+from repro_torch.dist.perf import under_current_flags
 from repro_torch.kernels import ops
 from .common import (
+    embed_axes,
     embed_tokens,
     init_truncated_normal_,
     layer_view,
@@ -191,6 +194,32 @@ class Mamba2LM(nn.Module):
             self.out_embed[cfg.vocab:] = 0
         return self
 
+    def param_axes(self) -> dict:
+        """The logical axes of the parameter tree, key for key the reference's."""
+        p = {
+            "embed": embed_axes(),
+            "ln": Axes("layers", "param_embed"),
+            "ln_f": Axes("param_embed"),
+            "in_proj": Axes("layers", "param_embed", "rnn_width"),
+            "conv_w": Axes("layers", "conv_dim", None),
+            "conv_b": Axes("layers", "conv_dim"),
+            "A_log": Axes("layers", "ssm_heads"),
+            "dt_bias": Axes("layers", "ssm_heads"),
+            "D": Axes("layers", "ssm_heads"),
+            "norm": Axes("layers", "rnn_width"),
+            "out_proj": Axes("layers", "rnn_width", "param_embed"),
+        }
+        if not self.cfg.tie_embeddings:
+            p["out_embed"] = embed_axes()
+        return p
+
+    def cache_axes(self) -> dict:
+        return {
+            "conv": Axes("layers", "cache_batch", None, "conv_dim"),
+            "ssm": Axes("layers", "cache_batch", "ssm_heads", None, "ssm_state"),
+            "length": Axes(),
+        }
+
     def _layer_params(self, l: int) -> dict:
         return {k: layer_view(getattr(self, k), l) for k in LAYER_PARAMS}
 
@@ -263,7 +292,7 @@ class Mamba2LM(nn.Module):
         for l in range(self.cfg.n_layers):
             lp = self._layer_params(l)
             if remat:
-                x = checkpoint(lambda lp, x: self._layer(lp, x)[0], lp, x, use_reentrant=False,
+                x = checkpoint(under_current_flags(lambda lp, x: self._layer(lp, x)[0]), lp, x, use_reentrant=False,
                                preserve_rng_state=False)
             else:
                 x, _, _ = self._layer(lp, x)

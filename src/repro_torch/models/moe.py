@@ -22,8 +22,10 @@ Two rules are written out where the reference leaves them to its scatters:
   in that order, one after another, with no atomics: the result is the same
   bits in every call.
 
-The shard-local variant (``_moe_ffn_local``, a ``shard_map`` over data
-shards) belongs to the distribution slice (ROADMAP Queue A item 17).
+§Perf V2 (:func:`moe_ffn_local`): under a mesh whose data dims split the
+batch, each data rank routes its own batch shard through the same body, its
+capacity taken from its local token count, and the ranks average the aux
+loss and gather the outputs.
 """
 from __future__ import annotations
 
@@ -31,6 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import dist as rdist
+from repro_torch.dist import Axes
+from repro_torch.dist.perf import perf
 from .common import glu_activation, init_truncated_normal_, sigmoid
 
 
@@ -43,6 +48,22 @@ def moe_params(cfg, L: int, p) -> nn.ParameterDict:
         ffs = cfg.n_shared_experts * ff
         moe.update(ws_gate=p(L, d, ffs), ws_up=p(L, d, ffs), ws_down=p(L, ffs, d), ws_gate_scalar=p(L, d))
     return nn.ParameterDict(moe)
+
+
+def moe_axes(cfg) -> dict:
+    """The reference's logical axes of the MoE tree."""
+    p = {
+        "router": Axes("layers", "param_embed", None),
+        "we_gate": Axes("layers", "experts", "param_embed", "mlp"),
+        "we_up": Axes("layers", "experts", "param_embed", "mlp"),
+        "we_down": Axes("layers", "experts", "mlp", "param_embed"),
+    }
+    if cfg.n_shared_experts:
+        p["ws_gate"] = Axes("layers", "param_embed", "mlp")
+        p["ws_up"] = Axes("layers", "param_embed", "mlp")
+        p["ws_down"] = Axes("layers", "mlp", "param_embed")
+        p["ws_gate_scalar"] = Axes("layers", "param_embed")
+    return p
 
 
 @torch.no_grad()
@@ -105,7 +126,43 @@ def dispatch(top_i: torch.Tensor, top_p: torch.Tensor, E: int, C: int):
 
 def moe_ffn(lp: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     """lp: this layer's MoE leaves; x (B, T, d) → (y (B, T, d) in x's dtype,
-    the aux loss, an fp32 scalar)."""
+    the aux loss, an fp32 scalar). Dispatch is over the whole batch, or per
+    data shard under §Perf V2 where :func:`moe_ffn_local` applies."""
+    if perf().moe_local_dispatch:
+        y, aux = moe_ffn_local(lp, x, cfg)
+        if y is not None:
+            return y, aux
+    return _moe_tokens(lp, x, cfg)
+
+
+def moe_ffn_local(lp: dict, x: torch.Tensor, cfg):
+    """§Perf V2: x (B, T, d) is every rank's global value; this rank routes
+    its data shard of the batch (capacity from its own N = B_l·T), the aux
+    loss is averaged over the data dims' ranks and y gathered over them.
+    (None, None) without a mesh or where the batch is not split, as the
+    reference. Forward only. ``moe_ffn_local.mesh_calls`` counts the calls
+    that route a shard."""
+    mesh = rdist.active_mesh()
+    if mesh is None:
+        return None, None
+    bspec = rdist.logical_to_spec(("batch", "seq", "embed"), x.shape, mesh)[0]
+    if bspec is None:  # batch unsharded: local is global
+        return None, None
+    import torch.distributed as dist
+
+    rdist.no_autograd("moe_ffn_local", x, *lp.values())
+    moe_ffn_local.mesh_calls += 1
+    y, aux = _moe_tokens(lp, x[rdist.shard_slice(mesh, bspec, x.shape[0])], cfg)
+    for a in rdist.entry_axes(bspec):  # the mean over each data dim in turn, as the reference's pmean
+        aux = rdist.all_reduce_axes(aux, mesh, a, dist.ReduceOp.SUM) / rdist.mesh_shape(mesh)[a]
+    return rdist.all_gather_axes(y, mesh, bspec, 0), aux
+
+
+moe_ffn_local.mesh_calls = 0
+
+
+def _moe_tokens(lp: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dispatch over all of x's tokens: ``repro/models/moe.py::_moe_tokens``."""
     B, T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     N = B * T

@@ -29,9 +29,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import Axes
+from repro_torch.dist.perf import under_current_flags
 from repro_torch.kernels import ops
 from . import attention as attn_lib
 from .common import (
+    embed_axes,
     embed_tokens,
     gelu_tanh,
     init_truncated_normal_,
@@ -43,7 +46,21 @@ from .common import (
     softmax_cross_entropy,
     softplus,
 )
-from .transformer import apply_mlp, attn_params, init_attn_, init_mlp_, mlp_params, qkv
+from .transformer import apply_mlp, attn_axes, attn_params, init_attn_, init_mlp_, mlp_axes, mlp_params, qkv
+
+
+def rec_block_axes() -> dict:
+    """The reference's logical axes of a recurrent block's tree."""
+    return {
+        "w_in": Axes("layers", "param_embed", "rnn_width"),
+        "w_gate_branch": Axes("layers", "param_embed", "rnn_width"),
+        "conv_w": Axes("layers", "rnn_width", None),
+        "conv_b": Axes("layers", "rnn_width"),
+        "w_a": Axes("layers", "param_embed", "rnn_width"),
+        "w_x": Axes("layers", "param_embed", "rnn_width"),
+        "lam": Axes("layers", "rnn_width"),
+        "w_out": Axes("layers", "rnn_width", "param_embed"),
+    }
 
 _C = 8.0  # RG-LRU temperature
 CACHE_DTYPE = torch.bfloat16  # conv tails and ring K/V are bf16 whatever the compute dtype, as in the reference
@@ -189,6 +206,33 @@ class GriffinLM(nn.Module):
             self.out_embed[cfg.vocab:] = 0
         return self
 
+    def _slot_axes(self, kind: str) -> dict:
+        return {"ln1": Axes("layers", "param_embed"), "ln2": Axes("layers", "param_embed"), "mlp": mlp_axes(self.cfg),
+                "mix": rec_block_axes() if kind == "R" else attn_axes(self.cfg)}
+
+    def param_axes(self) -> dict:
+        """The logical axes of the parameter tree, key for key the reference's."""
+        p = {"embed": embed_axes(), "ln_f": Axes("param_embed"),
+             "slots": [self._slot_axes(k) for k in self.pattern],
+             "rem": [self._slot_axes(k) for k in self.rem_pattern]}
+        if not self.cfg.tie_embeddings:
+            p["out_embed"] = embed_axes()
+        return p
+
+    def cache_axes(self) -> dict:
+        """As the reference's: a recurrent slot's conv tail takes ``batch``
+        where its state takes ``cache_batch``; ``rem`` drops the stacked dim."""
+        def slot_ax(kind):
+            if kind == "R":
+                return {"conv": Axes("layers", "batch", None, "rnn_width"),
+                        "h": Axes("layers", "cache_batch", "rnn_width")}
+            return {"k": Axes("layers", "cache_batch", "kv_seq", "act_kv", None),
+                    "v": Axes("layers", "cache_batch", "kv_seq", "act_kv", None)}
+
+        return {"slots": [slot_ax(k) for k in self.pattern],
+                "rem": [{name: Axes(*ax.t[1:]) for name, ax in slot_ax(k).items()} for k in self.rem_pattern],
+                "length": Axes()}
+
     def _layers(self, cache: dict | None = None):
         """(kind, layer parameters, layer cache or None) for every layer in
         order. The layer cache holds views into ``cache``."""
@@ -259,7 +303,7 @@ class GriffinLM(nn.Module):
         sin, cos = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
         for kind, lp, lc in self._layers(cache):
             if remat:  # nothing saved inside a layer: its forward runs again in the backward
-                x = checkpoint(self._layer, kind, lp, x, sin, cos, use_reentrant=False, preserve_rng_state=False)
+                x = checkpoint(under_current_flags(self._layer), kind, lp, x, sin, cos, use_reentrant=False, preserve_rng_state=False)
             else:
                 x = self._layer(kind, lp, x, sin, cos, lc, pos)
         return x

@@ -14,6 +14,14 @@ Training: ``model.requires_grad_()`` makes the parameters trainable (they
 are created without grad, for serving), and :meth:`TransformerLM.loss`
 recomputes each layer in the backward (``remat``), as the reference's
 ``nothing_saveable`` policy.
+
+§Perf variants (:mod:`repro_torch.dist.perf`), as the reference places them:
+V1 saves a layer's two post-product tensors under remat, V2 routes the MoE
+FFN per data shard (:func:`.moe.moe_ffn`), V3 decodes over a cache split on
+the ``model`` mesh dim (:func:`.attention.sharded_decode_update_attend`), V6
+casts the stacked weights before the layer, V9 reduces the row-parallel
+products (``wo`` in the full-sequence layer, every MLP's ``w_down``) in bf16
+over the ``model`` ranks (:func:`row_parallel_einsum`).
 """
 from __future__ import annotations
 
@@ -22,9 +30,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch import dist as rdist
+from repro_torch.dist import Axes
+from repro_torch.dist.perf import perf, under_current_flags
 from . import attention as attn_lib
 from .common import (
     apply_rope,
+    checkpoint_name,
+    embed_axes,
     embed_tokens,
     gelu_tanh,
     glu_activation,
@@ -34,9 +47,10 @@ from .common import (
     norm,
     rmsnorm,
     rope_tables,
+    save_only_these_names,
     softmax_cross_entropy,
 )
-from .moe import init_moe_, moe_ffn, moe_params
+from .moe import init_moe_, moe_axes, moe_ffn, moe_params
 
 CACHE_DTYPE = torch.bfloat16  # the KV cache is bf16 whatever the compute dtype, as in the reference
 
@@ -61,6 +75,35 @@ def mlp_params(cfg, L: int, p) -> nn.ParameterDict:
     return nn.ParameterDict({"w_gate": p(L, d, ff), "w_up": p(L, d, ff), "w_down": p(L, ff, d)})
 
 
+def attn_axes(cfg) -> dict:
+    """The reference's logical axes of the attention tree."""
+    p = {
+        "wq": Axes("layers", "param_embed", "heads"),
+        "wk": Axes("layers", "param_embed", "kv"),
+        "wv": Axes("layers", "param_embed", "kv"),
+        "wo": Axes("layers", "heads", "param_embed"),
+    }
+    if cfg.attention_bias:
+        p["bq"] = Axes("layers", "heads")
+        p["bk"] = Axes("layers", "kv")
+        p["bv"] = Axes("layers", "kv")
+    if cfg.qk_norm:
+        p["q_norm"] = Axes("layers", None)
+        p["k_norm"] = Axes("layers", None)
+    return p
+
+
+def mlp_axes(cfg) -> dict:
+    """The reference's logical axes of the MLP tree."""
+    if cfg.activation == "gelu":
+        return {"w_up": Axes("layers", "param_embed", "mlp"), "w_down": Axes("layers", "mlp", "param_embed")}
+    return {
+        "w_gate": Axes("layers", "param_embed", "mlp"),
+        "w_up": Axes("layers", "param_embed", "mlp"),
+        "w_down": Axes("layers", "mlp", "param_embed"),
+    }
+
+
 @torch.no_grad()
 def init_attn_(attn: nn.ParameterDict, cfg, generator: torch.Generator) -> None:
     """The reference's stds: ``d^-½`` for wq/wk/wv, ``(H·hd)^-½`` for wo;
@@ -79,12 +122,46 @@ def init_mlp_(mlp: nn.ParameterDict, cfg, generator: torch.Generator) -> None:
     init_truncated_normal_(mlp["w_down"], cfg.d_ff**-0.5, generator)
 
 
+def row_parallel_einsum(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """u (B,T,F) @ w (F,D). §Perf V9, on CUDA tensors under a mesh with a
+    ``model`` dim that divides F: each ``model`` rank multiplies its slice
+    of F, and the partial products, rounded to u's dtype, are summed by a
+    reduce-scatter and an all-gather over the ``model`` ranks (the ring
+    all-reduce's two halves) in that dtype. CPU tensors take the plain
+    product, as the reference's CPU backend does. Forward only.
+    ``row_parallel_einsum.mesh_calls`` counts the calls that take the
+    collective path."""
+    mesh = rdist.active_mesh()
+    n = rdist.mesh_shape(mesh).get("model") if mesh is not None else None
+    F = u.shape[-1]
+    if not perf().bf16_rowparallel or n is None or F % n or not u.is_cuda:
+        return u @ w
+    import torch.distributed as dist
+
+    rdist.no_autograd("row_parallel_einsum", u, w)
+    row_parallel_einsum.mesh_calls += 1
+    f = rdist.shard_slice(mesh, "model", F)
+    y = (u[..., f] @ w[f]).to(u.dtype)
+    B, T, D = y.shape
+    if D % n:
+        raise ValueError(f"row_parallel_einsum: output dim {D} does not split over {n} model ranks")
+    group = mesh.get_group("model")
+    chunks = y.reshape(B * T, n, D // n).transpose(0, 1).contiguous()  # (n, B·T, D/n)
+    part = torch.empty_like(chunks[0])
+    dist.reduce_scatter_tensor(part, chunks, group=group)
+    dist.all_gather_into_tensor(chunks, part, group=group)
+    return chunks.transpose(0, 1).reshape(B, T, D)
+
+
+row_parallel_einsum.mesh_calls = 0
+
+
 def apply_mlp(lp: dict, h: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.activation == "gelu":
-        return gelu_tanh(h @ lp["w_up"].to(h.dtype)) @ lp["w_down"].to(h.dtype)
+        return row_parallel_einsum(gelu_tanh(h @ lp["w_up"].to(h.dtype)), lp["w_down"].to(h.dtype))
     g = h @ lp["w_gate"].to(h.dtype)
     u = h @ lp["w_up"].to(h.dtype)
-    return glu_activation(g, u, cfg.activation) @ lp["w_down"].to(h.dtype)
+    return row_parallel_einsum(glu_activation(g, u, cfg.activation), lp["w_down"].to(h.dtype))
 
 
 def qkv(lp: dict, h: torch.Tensor, cfg, sin, cos):
@@ -172,12 +249,45 @@ class TransformerLM(nn.Module):
             init_truncated_normal_(self.pos_embed, 0.02, generator)
         return self
 
+    def param_axes(self) -> dict:
+        """The logical axes of the parameter tree, key for key the reference's."""
+        cfg = self.cfg
+        p: dict = {"embed": embed_axes(), "ln1": Axes("layers", "param_embed"), "ln_f": Axes("param_embed"),
+                   "attn": attn_axes(cfg)}
+        if not cfg.parallel_block:
+            p["ln2"] = Axes("layers", "param_embed")
+        if cfg.family == "moe":
+            p["moe"] = moe_axes(cfg)
+        else:
+            p["mlp"] = mlp_axes(cfg)
+        if not cfg.tie_embeddings:
+            p["out_embed"] = embed_axes()
+        if cfg.pos_emb == "learned":
+            p["pos_embed"] = Axes("param_seq", "param_embed")
+        return p
+
+    def cache_axes(self) -> dict:
+        return {
+            "k": Axes("layers", "cache_batch", "kv_seq", "act_kv", None),
+            "v": Axes("layers", "cache_batch", "kv_seq", "act_kv", None),
+            "length": Axes(),
+        }
+
     def _layer(self, l: int) -> dict:
+        """Layer ``l``'s parameters (views of the stacked tensors); under
+        §Perf V6 the slices of the ≥ 3-D stacked weights cast to the compute
+        dtype here, as the reference casts them before its scan."""
+        dtype = self.compute_dtype if perf().cast_weights_early else None
+
+        def view(t):
+            v = layer_view(t, l)
+            return v.to(dtype) if dtype is not None and t.ndim >= 3 else v
+
         ffn = "moe" if self.cfg.family == "moe" else "mlp"
-        lp = {"ln1": layer_view(self.ln1, l), "attn": {k: layer_view(v, l) for k, v in self.attn.items()},
-              ffn: {k: layer_view(v, l) for k, v in getattr(self, ffn).items()}}
+        lp = {"ln1": view(self.ln1), "attn": {k: view(v) for k, v in self.attn.items()},
+              ffn: {k: view(v) for k, v in getattr(self, ffn).items()}}
         if not self.cfg.parallel_block:
-            lp["ln2"] = layer_view(self.ln2, l)
+            lp["ln2"] = view(self.ln2)
         return lp
 
     def _out_embed(self) -> torch.Tensor:
@@ -189,25 +299,29 @@ class TransformerLM(nn.Module):
             return moe_ffn(lp["moe"], h, self.cfg)
         return apply_mlp(lp["mlp"], h, self.cfg), None
 
-    def _block_tail(self, lp, x, h, ao):
+    def _block_tail(self, lp, x, h, ao, named: bool = False):
         """Residual adds and the FFN, after attention's output projection:
-        (x, the layer's aux loss or None)."""
+        (x, the layer's aux loss or None). ``named``: mark the FFN's output
+        for §Perf V1, outside the parallel block as the reference."""
         cfg = self.cfg
         if cfg.parallel_block:
             mo, aux = self._ffn(lp, h)
             return x + ao + mo, aux
         x = x + ao
         mo, aux = self._ffn(lp, norm(x, lp["ln2"], cfg.rms_eps, cfg.norm_type))
-        return x + mo, aux
+        return x + (checkpoint_name(mo, "mlp_out") if named else mo), aux
 
     def _block(self, lp, x, sin, cos, q_chunk):
         """One layer over the whole sequence: (x, aux, k, v)."""
         B, T, _ = x.shape
+        named = perf().save_dot_outputs
         h = norm(x, lp["ln1"], self.cfg.rms_eps, self.cfg.norm_type)
         q, k, v = qkv(lp["attn"], h, self.cfg, sin, cos)
         ao = attn_lib.full_attention(q, k, v, causal=True, q_chunk=q_chunk)
-        ao = ao.reshape(B, T, -1) @ lp["attn"]["wo"].to(x.dtype)
-        return *self._block_tail(lp, x, h, ao), k, v
+        ao = row_parallel_einsum(ao.reshape(B, T, -1), lp["attn"]["wo"].to(x.dtype))
+        if named:
+            ao = checkpoint_name(ao, "attn_out")
+        return *self._block_tail(lp, x, h, ao, named), k, v
 
     # -- forward (prefill) -----------------------------------------------------
     def _trunk(self, tokens, vision_embeds, q_chunk, kv_sink=None, remat=False):
@@ -223,9 +337,11 @@ class TransformerLM(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for l in range(cfg.n_layers):
             lp = self._layer(l)
-            if remat:  # nothing saved inside a layer: its forward runs again in the backward
-                x, aux_l, k, v = checkpoint(self._block, lp, x, sin, cos, q_chunk, use_reentrant=False,
-                                            preserve_rng_state=False)
+            if remat:  # nothing saved inside a layer (V1: but attn_out and mlp_out)
+                kw = {"context_fn": lambda: save_only_these_names("attn_out", "mlp_out")} \
+                    if perf().save_dot_outputs else {}
+                x, aux_l, k, v = checkpoint(under_current_flags(self._block), lp, x, sin, cos, q_chunk,
+                                            use_reentrant=False, preserve_rng_state=False, **kw)
             else:
                 x, aux_l, k, v = self._block(lp, x, sin, cos, q_chunk)
             if aux_l is not None:
@@ -287,10 +403,16 @@ class TransformerLM(nn.Module):
     def decode_step(self, cache: dict, tokens: torch.Tensor):
         """tokens (B,1) — appends one position at cache['length']. The cache
         tensors are updated in place (the reference returns new arrays); the
-        returned dict holds the same tensors and the new length."""
+        returned dict holds the same tensors and the new length. Under §Perf
+        V3 the cache may be placed on the mesh (``repro_torch.dist.
+        distribute_tree`` with :meth:`cache_axes`), each rank holding its
+        shard."""
         cfg = self.cfg
         B = tokens.shape[0]
         pos = int(cache["length"])
+        sharded = perf().sharded_decode_attn
+        if not sharded and rdist.is_dtensor(cache["k"]):
+            raise ValueError("a cache placed on a mesh is decoded by the sharded path (PerfConfig.sharded_decode_attn)")
         x = embed_tokens(self.embed, tokens, self.compute_dtype)
         if cfg.pos_emb == "learned":
             x = x + self.pos_embed[pos:pos + 1].to(x.dtype)
@@ -299,9 +421,13 @@ class TransformerLM(nn.Module):
             lp = self._layer(l)
             h = norm(x, lp["ln1"], cfg.rms_eps, cfg.norm_type)
             q, k, v = qkv(lp["attn"], h, cfg, sin, cos)
-            kc = attn_lib.update_cache(cache["k"][l], k, pos)
-            vc = attn_lib.update_cache(cache["v"][l], v, pos)
-            ao = attn_lib.decode_attention(q, kc, vc, pos + 1)
+            if sharded:
+                ao, _, _ = attn_lib.sharded_decode_update_attend(q, rdist.select(cache["k"], l),
+                                                                 rdist.select(cache["v"], l), k, v, pos)
+            else:
+                kc = attn_lib.update_cache(cache["k"][l], k, pos)
+                vc = attn_lib.update_cache(cache["v"][l], v, pos)
+                ao = attn_lib.decode_attention(q, kc, vc, pos + 1)
             ao = ao.reshape(B, 1, -1) @ lp["attn"]["wo"].to(x.dtype)
             x, _ = self._block_tail(lp, x, h, ao)
         x = norm(x, self.ln_f, cfg.rms_eps, cfg.norm_type)

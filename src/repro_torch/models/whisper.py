@@ -33,8 +33,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import Axes
+from repro_torch.dist.perf import under_current_flags
 from . import attention as attn_lib
 from .common import (
+    embed_axes,
     embed_tokens,
     init_truncated_normal_,
     layer_view,
@@ -42,7 +45,8 @@ from .common import (
     logits_from_hidden,
     softmax_cross_entropy,
 )
-from .transformer import CACHE_DTYPE, apply_mlp, attn_params, init_attn_, init_mlp_, mlp_params, qkv
+from .transformer import (CACHE_DTYPE, apply_mlp, attn_axes, attn_params, init_attn_, init_mlp_, mlp_axes, mlp_params,
+                          qkv)
 
 MAX_DEC_POS = 40960  # rows of the learned decoder positions, as the reference's table
 _EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2, 1.6666665459e-1,
@@ -113,7 +117,7 @@ def _run(fn, remat: bool, *args):
     """``fn(*args)``; with ``remat`` nothing inside is saved and it runs again
     in the backward."""
     if remat:
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return checkpoint(under_current_flags(fn), *args, use_reentrant=False, preserve_rng_state=False)
     return fn(*args)
 
 
@@ -167,6 +171,24 @@ class WhisperModel(nn.Module):
         for mlp in (self.enc.mlp, self.dec.mlp):
             init_mlp_(mlp, cfg, generator)
         return self
+
+    def param_axes(self) -> dict:
+        """The logical axes of the parameter tree, key for key the reference's."""
+        cfg = self.cfg
+        ln = Axes("layers", "param_embed")
+        enc = {"ln1": ln, "ln2": ln, "attn": attn_axes(cfg), "mlp": mlp_axes(cfg)}
+        dec = {"ln1": ln, "ln2": ln, "ln3": ln, "attn": attn_axes(cfg), "cross": attn_axes(cfg), "mlp": mlp_axes(cfg)}
+        return {"embed": embed_axes(), "dec_pos": Axes("param_seq", "param_embed"), "enc": enc,
+                "enc_ln_f": Axes("param_embed"), "dec": dec, "dec_ln_f": Axes("param_embed")}
+
+    def cache_axes(self) -> dict:
+        return {
+            "k": Axes("layers", "cache_batch", "kv_seq", "act_kv", None),
+            "v": Axes("layers", "cache_batch", "kv_seq", "act_kv", None),
+            "ck": Axes("layers", "cache_batch", None, "act_kv", None),
+            "cv": Axes("layers", "cache_batch", None, "act_kv", None),
+            "length": Axes(),
+        }
 
     # -- encoder -------------------------------------------------------------
     def _enc_layer(self, lp, x, q_chunk):

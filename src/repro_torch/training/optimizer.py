@@ -20,6 +20,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.dist import Axes
 from repro_torch.tree import leaves, tree_map
 
 
@@ -197,3 +198,19 @@ def opt_update(cfg: OptimizerConfig, grads, opt_state: dict, params):
     if cfg.name == "adamw":
         return adamw_update(cfg, grads, opt_state, params)
     return adafactor_update(cfg, grads, opt_state, params)
+
+
+def opt_state_axes(cfg: OptimizerConfig, param_axes, params_shape):
+    """Logical axes of the optimizer state, mirroring the parameters' (the
+    reference's tree: AdamW's ``m``/``v``, Adafactor's factored ``vr``/``vc``
+    or ``v`` per leaf). ``params_shape``: any tree of tensors with the
+    parameters' shapes (meta tensors do)."""
+    if cfg.name == "adamw":
+        return {"m": param_axes, "v": param_axes, "count": Axes()}
+
+    def leaf_axes(ax, p):
+        if _factored(p):
+            return {"vr": Axes(*ax.t[:-1]), "vc": Axes(*(ax.t[:-2] + ax.t[-1:]))}
+        return {"v": ax}
+
+    return {"f": tree_map(leaf_axes, param_axes, params_shape), "count": Axes()}

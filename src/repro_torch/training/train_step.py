@@ -18,9 +18,10 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch.convert import param_tree
+from repro_torch.dist import Axes
 from repro_torch.models import build_model
 from repro_torch.tree import leaves
-from .optimizer import OptimizerConfig, clip_by_global_norm, opt_init, opt_update
+from .optimizer import OptimizerConfig, clip_by_global_norm, opt_init, opt_state_axes, opt_update
 
 
 @dataclass(frozen=True)
@@ -40,6 +41,14 @@ def init_state(model, generator: torch.Generator | None, opt_cfg: OptimizerConfi
     model.requires_grad_(True)
     params = param_tree(model)
     return {"params": params, "opt": opt_init(opt_cfg, params), "step": torch.zeros((), dtype=torch.int32)}
+
+
+def state_axes(model, opt_cfg: OptimizerConfig, params_shape):
+    """Logical axes of the train state ``{"params", "opt", "step"}``;
+    ``params_shape`` is the parameter tree or a whole state."""
+    pax = model.param_axes()
+    shapes = params_shape["params"] if "params" in params_shape else params_shape
+    return {"params": pax, "opt": opt_state_axes(opt_cfg, pax, shapes), "step": Axes()}
 
 
 def make_train_step(model, train_cfg: TrainConfig):

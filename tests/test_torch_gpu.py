@@ -12,7 +12,9 @@ import torch
 
 import dataclasses
 
+from repro_torch import dist as rdist
 from repro_torch.configs import get_config
+from repro_torch.dist.perf import PerfConfig, perf_context
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import paged_decode_attention, paged_decode_partials
 from repro_torch.kernels.flash_attention import flash_attention
@@ -20,7 +22,8 @@ from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import inter_chunk_scan, ssd_chunked_cuda, ssd_output, ssd_states
 from repro_torch.kernels import ops
 from repro_torch.launch import grad_check
-from repro_torch.models import attention, build_model, moe
+from repro_torch.models import attention, build_model, moe, transformer
+from repro_torch.training import compression
 from repro_torch.training.optimizer import OptimizerConfig
 from repro_torch.training.train_step import TrainConfig, init_state, make_train_step
 
@@ -77,13 +80,22 @@ def _randn(rng, shape, dtype, device):
     return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device, DTYPES[dtype])
 
 
+# the kernels' checks draw inputs whose outputs are O(1) (grad_check.shifted_qkv):
+# from N(0, 1) ones the outputs are ~√(e/S), a few bf16 tolerances wide
+def _qkv(rng, B, T, H, K, hd, dtype, device):
+    return grad_check.shifted_qkv(rng, T, T, DTYPES[dtype], device, H=H, K=K, hd=hd, B=B)
+
+
+def _pages(rng, B, H, K, hd, P, page, dtype, device):
+    return grad_check.shifted_pages(rng, B, H, K, hd, P, page, DTYPES[dtype], device)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("B,T,H,K,hd,causal,window", FLASH_GRID)
 def test_flash_kernel_matches_plain(cuda, B, T, H, K, hd, causal, window, dtype):
     rng = np.random.default_rng(0)
-    q = _randn(rng, (B, T, H, hd), dtype, cuda)
-    k, v = (_randn(rng, (B, T, K, hd), dtype, cuda) for _ in range(2))
+    q, k, v = _qkv(rng, B, T, H, K, hd, dtype, cuda)
     out = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert out.dtype == q.dtype and out.shape == q.shape
@@ -95,8 +107,7 @@ def test_flash_kernel_matches_plain(cuda, B, T, H, K, hd, causal, window, dtype)
 @pytest.mark.parametrize("B,H,K,hd,P,page,maxp", PAGED_GRID)
 def test_paged_kernel_matches_plain(cuda, B, H, K, hd, P, page, maxp, dtype):
     rng = np.random.default_rng(0)
-    q = _randn(rng, (B, H, hd), dtype, cuda)
-    pk, pv = (_randn(rng, (P, page, K, hd), dtype, cuda) for _ in range(2))
+    q, pk, pv = _pages(rng, B, H, K, hd, P, page, dtype, cuda)
     pt = torch.from_numpy(rng.integers(0, P, size=(B, maxp)).astype(np.int32)).to(cuda)
     lengths = torch.from_numpy(rng.integers(1, maxp * page, size=(B,)).astype(np.int32)).to(cuda)
     out = paged_decode_attention(q, pk, pv, pt, lengths)
@@ -108,11 +119,12 @@ def test_paged_kernel_matches_plain(cuda, B, H, K, hd, P, page, maxp, dtype):
 def test_kernels_read_strided_views(cuda):
     """q/k/v as views into one fused tensor (no copy), ragged lengths, length 0."""
     rng = np.random.default_rng(1)
-    qkv = _randn(rng, (2, 70, 12, 64), "bfloat16", cuda)
+    mu = grad_check.shift_mean(64)  # q, k and v drawn as _qkv draws them, in one tensor
+    means = torch.tensor([mu] * 8 + [-mu] * 2 + [1.0] * 2).view(1, 1, 12, 1)
+    qkv = (torch.from_numpy(rng.normal(size=(2, 70, 12, 64)).astype(np.float32)) + means).to(cuda, torch.bfloat16)
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
     _close(ref.mha_reference(q, k, v), flash_attention(q, k, v), "bfloat16")
-    q = _randn(rng, (3, 8, 64), "float32", cuda)
-    pk, pv = (_randn(rng, (10, 16, 2, 64), "float32", cuda) for _ in range(2))
+    q, pk, pv = _pages(rng, 3, 8, 2, 64, 10, 16, "float32", cuda)
     pt = torch.from_numpy(rng.integers(0, 10, size=(3, 5)).astype(np.int32)).to(cuda)
     lengths = torch.tensor([0, 1, 80], dtype=torch.int32, device=cuda)
     out = paged_decode_attention(q, pk, pv, pt, lengths)
@@ -579,8 +591,7 @@ def test_paged_partials_match_plain(cuda, B, H, K, hd, P, page, maxp, split_len,
     combined output against the plain decode, at lengths 0, 1, 15, 16, 17,
     every split boundary (and one past it) and the capacity."""
     rng = np.random.default_rng(5)
-    q = _randn(rng, (B, H, hd), dtype, cuda)
-    pk, pv = (_randn(rng, (P, page, K, hd), dtype, cuda) for _ in range(2))
+    q, pk, pv = _pages(rng, B, H, K, hd, P, page, dtype, cuda)
     if identity:
         pt = torch.arange(B * maxp, dtype=torch.int32, device=cuda).view(B, maxp)
     else:
@@ -610,8 +621,7 @@ def test_paged_partials_match_plain(cuda, B, H, K, hd, P, page, maxp, split_len,
 ])
 def test_flash_bf16_tensor_core_edges(cuda, hd, B, T, H, K, causal, window):
     rng = np.random.default_rng(6)
-    q = _randn(rng, (B, T, H, hd), "bfloat16", cuda)
-    k, v = (_randn(rng, (B, T, K, hd), "bfloat16", cuda) for _ in range(2))
+    q, k, v = _qkv(rng, B, T, H, K, hd, "bfloat16", cuda)
     out = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     _close(ref.mha_reference(q, k, v, causal=causal, window=window), out, "bfloat16")
@@ -620,7 +630,10 @@ def test_flash_bf16_tensor_core_edges(cuda, hd, B, T, H, K, causal, window):
 @pytest.mark.gpu
 @pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 def test_flash_bf16_reads_strided_views(cuda, hd):
-    qkv = _randn(np.random.default_rng(7), (2, 70, 12, hd), "bfloat16", cuda)
+    mu = grad_check.shift_mean(hd)  # q, k and v drawn as _qkv draws them, in one tensor
+    means = torch.tensor([mu] * 8 + [-mu] * 2 + [1.0] * 2).view(1, 1, 12, 1)
+    qkv = (torch.from_numpy(np.random.default_rng(7).normal(size=(2, 70, 12, hd)).astype(np.float32))
+           + means).to(cuda, torch.bfloat16)
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
     _close(ref.mha_reference(q, k, v), flash_attention(q, k, v), "bfloat16")
 
@@ -679,7 +692,7 @@ def test_attention_gradients_on_card_match_cpu(cuda, B, T, S, H, K, hd, causal, 
     gradient in torch ops through ``ops.Attention``) against the CPU's
     jnp-body port under autograd, at the same inputs and cotangent."""
     rng = np.random.default_rng(9)
-    host = [_randn(rng, s, dtype, "cpu") for s in ((B, T, H, hd), (B, S, K, hd), (B, S, K, hd))]
+    host = list(grad_check.shifted_qkv(rng, T, S, DTYPES[dtype], "cpu", H=H, K=K, hd=hd, B=B))
     w = _randn(rng, (B, T, H, hd), "float32", "cpu")
     grads = {}
     for dev, chunk in ((cuda, q_chunk), (torch.device("cpu"), 2048)):
@@ -804,3 +817,98 @@ def test_moe_ffn_on_card_matches_cpu(cuda, arch, cf, T, dtype):
     assert torch.equal(table, table_g.cpu())
     if cf < 1:
         assert (table[:, 0] == T).any()  # an overflowing expert gave up its slot 0
+
+
+# ---------------------------------------------------------------------------
+# the distribution layer on one card: a 1-rank NCCL group (gloo beside it
+# for CPU tensors) and a (1, 1) DeviceMesh, as chip_smoke.py's phase mesh
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL runs on one")
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("cuda:nccl,cpu:gloo", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        yield make_host_mesh((1, 1), ("data", "model"), "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+ALL_FLAGS = PerfConfig(**{f.name: True for f in dataclasses.fields(PerfConfig)})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_row_parallel_einsum_through_nccl_equals_the_product(cuda, nccl_mesh, dtype):
+    """V9's reduce-scatter and all-gather over the one ``model`` rank give
+    the plain product's bits."""
+    rng = np.random.default_rng(10)
+    u, w = _randn(rng, (2, 5, 256), dtype, cuda), _randn(rng, (256, 64), dtype, cuda)
+    transformer.row_parallel_einsum.mesh_calls = 0
+    with torch.no_grad(), rdist.mesh_context(nccl_mesh), perf_context(ALL_FLAGS):
+        y = transformer.row_parallel_einsum(u, w)
+    assert transformer.row_parallel_einsum.mesh_calls == 1
+    assert torch.equal(y, u @ w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-1b-a400m"])
+def test_decode_under_the_mesh_equals_no_mesh(cuda, nccl_mesh, arch):
+    """Every PerfConfig flag on, the KV cache placed on the (1, 1) mesh: the
+    greedy tokens and logits of a reduced bf16 model as without a mesh (V3
+    takes its dense path on the placed cache, V2 routes the one data shard,
+    V9 runs through NCCL). Both runs decode with the paged-decode kernel over
+    a cache of 64 slots, one identity page of 64, which is held here against
+    its plain version at the model's heads and every length."""
+    cfg = get_config(arch).reduced(dtype="bfloat16")
+    model = build_model(cfg, cuda, param_dtype=torch.bfloat16).init(torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(11)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 16))).long().to(cuda)
+    q, kc, vc = grad_check.shifted_qkv(rng, 1, 64, torch.bfloat16, "cpu", B=2, H=cfg.n_heads, K=cfg.n_kv_heads,
+                                       hd=cfg.resolved_head_dim)
+    for length in range(1, 65):
+        _close(attention.decode_attention(q, kc, vc, length),
+               attention.decode_attention(q.to(cuda), kc.to(cuda), vc.to(cuda), length), "bfloat16")
+
+    def run(mesh):
+        with torch.no_grad(), rdist.mesh_context(mesh), perf_context(ALL_FLAGS if mesh else PerfConfig()):
+            logits, cache = model.prefill(prompt, pad_to=64)
+            if mesh is not None:
+                cache = rdist.distribute_tree(cache, mesh, model.cache_axes())
+            out = [logits]
+            for _ in range(4):
+                logits, cache = model.decode_step(cache, out[-1][:, :cfg.vocab].argmax(-1, keepdim=True))
+                out.append(logits)
+        return torch.stack(out), cache
+
+    want, _ = run(None)
+    got, cache = run(nccl_mesh)
+    assert rdist.is_dtensor(cache["k"])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_compressed_psum_on_card_bit_equal_cpu(cuda, nccl_mesh):
+    """``compressed_psum`` on CUDA tensors through NCCL and on CPU tensors
+    through gloo: the same bits, ragged sizes and an all-zero block."""
+    import torch.distributed as dist
+
+    rng = np.random.default_rng(12)
+    grads = {"a": _randn(rng, (3, 300), "float32", "cpu") * 1e-3, "b": [_randn(rng, (257,), "float32", "cpu")]}
+    grads["a"][0, :256] = 0.0
+    err = compression.init_error_state(grads)
+    host = compression.compressed_psum(grads, err, dist.group.WORLD)
+    to = lambda t: {"a": t["a"].to(cuda), "b": [t["b"][0].to(cuda)]}  # noqa: E731
+    card = compression.compressed_psum(to(grads), to(err), nccl_mesh.get_group("data"))
+    for h, c in zip(host, card):
+        assert torch.equal(h["a"], c["a"].cpu()) and torch.equal(h["b"][0], c["b"][0].cpu())
