@@ -59,7 +59,9 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    with every ``PerfConfig`` flag on and the KV cache placed on the mesh,
    greedy tokens equal to the run without a mesh, each explicit path's calls
    counted; ``compressed_psum`` over a qwen3-4b layer's gradient shapes,
-   card through NCCL bit-equal to the CPU through gloo;
+   card through NCCL bit-equal to the CPU through gloo; a 1-layer qwen3-4b
+   train state saved into an in-memory stand-in for a KVStore and restored
+   onto the mesh with ``load_distributed``, every leaf equal;
 5. serving: ``repro_torch.launch.serve`` at full width and depth in bf16:
    qwen3-4b (8 requests, prompt 128, 32 new tokens, max batch 4), then
    mamba2-1.3b (8 requests, prompt 1024, max_len 1280), then
@@ -87,7 +89,13 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    ``make_train_step``, every launch count set to 0 just before: a finite
    loss at every step, flash launches = 36 × 2 (forward and recompute) × 2
    microbatches × 4 steps and no other kernel, step ms, tokens/s and peak
-   memory under 80 GB; (c) in a child process with deterministic algorithms,
+   memory under 80 GB, then one more step counted as the dry run counts;
+   dryrun: ``repro_torch.launch.dryrun`` over every arch × shape on both
+   production layouts on the meta device (every cell ok or skip), and the
+   qwen3-4b record at (b)'s shape on one rank held against (b): argument
+   bytes within 1% of what ``init_state`` allocated, the FLOPs of one step
+   meta and card exactly equal; argument + temp bytes over (b)'s peak and
+   ``train_mfu`` recorded; (c) in a child process with deterministic algorithms,
    ``launch/train.py``'s trainer at full width and 1 layer, checkpointing
    into an in-memory stand-in for a KVStore: 4 steps straight against 2,
    then a new trainer that resumes from the store for 2 more, every leaf
@@ -120,19 +128,21 @@ from repro_torch import dist as rdist  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
 from repro_torch.dist.perf import PerfConfig, perf_context  # noqa: E402
-from repro_torch.kernels import _build, decode_attention, ref  # noqa: E402
+from repro_torch.kernels import _build, cost, decode_attention, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_module  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
 from repro_torch.kernels.decode_attention import paged_decode_attention, paged_decode_partials  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import inter_chunk_scan, ssd_chunked_cuda, ssd_output, ssd_states  # noqa: E402
-from repro_torch.launch import grad_check, serve, train  # noqa: E402
-from repro_torch.launch.mesh import H100, make_host_mesh  # noqa: E402
+from repro_torch.checkpoint.bvstore import BVCheckpointStore  # noqa: E402
+from repro_torch.configs import ARCH_IDS, SHAPES, ShapeCell  # noqa: E402
+from repro_torch.launch import dryrun, grad_check, serve, specs, train  # noqa: E402
+from repro_torch.launch.mesh import H100, MeshLayout, make_host_mesh  # noqa: E402
 from repro_torch.models import attention, build_model, moe, transformer  # noqa: E402
 from repro_torch.training import compression  # noqa: E402
 from repro_torch.training.optimizer import OptimizerConfig  # noqa: E402
-from repro_torch.training.train_step import TrainConfig, init_state, make_train_step  # noqa: E402
+from repro_torch.training.train_step import TrainConfig, init_state, make_train_step, state_axes  # noqa: E402
 from repro_torch.tree import leaves_with_paths  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
@@ -174,6 +184,9 @@ TOL = {torch.float32: (2e-5, 1e-2), torch.bfloat16: (2e-2, 1e-2)}  # tests/test_
 SSD_TOL = {torch.float32: (5e-4, 1e-3), torch.bfloat16: (2e-2, 1e-2)}  # test_ssd_chunk_sweep's; bf16 y
 PARITY_ATOL = 5e-3  # phase 4, see there
 MEMORY_LIMIT = 80e9  # phase 6b: bytes, one card
+TRAIN_B, TRAIN_T = 4, 512  # phase 6b's global batch
+TRAIN_CFG = TrainConfig(opt=OptimizerConfig(warmup_steps=2, total_steps=100), accum_steps=2, remat=True)
+ARGS_RTOL = 0.01  # phase dryrun: predicted argument bytes against the allocation (allocator rounding)
 KERNELS = {
     "flash_attention": dict(route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
                             replaces="src/repro/kernels/flash_attention.py:152"),
@@ -355,7 +368,7 @@ def phase_attention_kernels(rng) -> dict:
 
     phase_attention_edges(rng)
 
-    dt, es = torch.bfloat16, 2
+    dt = torch.bfloat16
     results = {}
     flash, paged = attention_serving_shapes(rng, "qwen3-4b", 32, 8, 128)
     results["flash_attention"], results["paged_decode"] = flash, paged
@@ -369,8 +382,7 @@ def phase_attention_kernels(rng) -> dict:
         results["flash_attention"][f"max_abs_err_training_{str(dtype)[6:]}"] = err
     # timed in bf16, the training path's compute dtype
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
-    flops = 4 * hd * H * B * T * (T + 1) // 2
+    flops, nbytes = cost.flash_attention(q, k, v)
     bound_ms, by = bound(nbytes, flops, dt)
     print(f"  flash training shape bf16, ms per call (sdpa = library yardstick), "
           f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
@@ -488,15 +500,14 @@ def phase_hd256_kernels(rng) -> dict:
         check(f"paged hd 256 2,16,1,16,64,6 {dtype}", paged_decode_attention(q, pk, pv, pt, lens),
               ref.paged_decode_reference(q, pk, pv, pt, lens), TOL[dtype])
 
-    dt, es = torch.bfloat16, 2
+    dt = torch.bfloat16
     out = {}
     B, T, H, K, hd, W = 1, 2048, 16, 1, 256, 2048
     q, k, v = grad_check.shifted_qkv(rng, T, T, dt, B=B, H=H, K=K, hd=hd)
     err = check("flash hd 256 serving shape (window 2048)", flash_attention(q, k, v, window=W),
                 ref.mha_reference(q, k, v, window=W), TOL[dt])
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
-    flops = 4 * hd * H * B * T * (T + 1) // 2  # window 2048 = T: every causal pair
+    flops, nbytes = cost.flash_attention(q, k, v, window=W)  # window 2048 = T: every causal pair
     bound_ms, by = bound(nbytes, flops, dt)
     print(f"  flash hd 256 serving shape, ms per call (sdpa = library yardstick), "
           f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
@@ -517,8 +528,7 @@ def phase_hd256_kernels(rng) -> dict:
                              ref.paged_decode_reference(q, pk, pv, pt, lens), TOL[dt]))
     lens = torch.tensor([S], dtype=torch.int32, device="cuda")
     qs, ks, vs = q.view(1, H, 1, hd), kc.transpose(1, 2), vc.transpose(1, 2)
-    nbytes = 2 * S * K * hd * es + 2 * q.numel() * es + pt.numel() * 4 + 4
-    flops = 4 * H * hd * S
+    flops, nbytes = cost.paged_decode(q, pk, pv, pt, lens)
     bound_ms, by = bound(nbytes, flops, dt)
     print(f"  paged hd 256 over the full 2048-slot ring, ms per call (sdpa = library yardstick), "
           f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
@@ -535,14 +545,13 @@ def attention_serving_shapes(rng, arch: str, H: int, K: int, hd: int) -> tuple[d
     256-slot cache of identity pages of 64 (every length 0..256 checked,
     timed at 160), each beside its bound, its plain version and SDPA.
     Returns the (flash, paged decode) numbers."""
-    dt, es = torch.bfloat16, 2
+    dt = torch.bfloat16
     tag = f"{arch} (hd {hd}, {H} on {K} kv heads)"
     B, T = 1, 128
     q, k, v = grad_check.shifted_qkv(rng, T, T, dt, B=B, H=H, K=K, hd=hd)
     err = check(f"flash {tag} serving shape", flash_attention(q, k, v), ref.mha_reference(q, k, v), TOL[dt])
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
-    flops = 4 * hd * H * B * T * (T + 1) // 2
+    flops, nbytes = cost.flash_attention(q, k, v)
     bound_ms, by = bound(nbytes, flops, dt)
     print(f"  flash {tag} serving shape, ms per call (sdpa = library yardstick), "
           f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
@@ -565,8 +574,7 @@ def attention_serving_shapes(rng, arch: str, H: int, K: int, hd: int) -> tuple[d
     L = 160
     lens = torch.tensor([L], dtype=torch.int32, device="cuda")
     qs, ks, vs = q.view(1, H, 1, hd), kc[:, :L].transpose(1, 2), vc[:, :L].transpose(1, 2)
-    nbytes = 2 * L * K * hd * es + 2 * q.numel() * es + pt.numel() * 4 + 4
-    flops = 4 * H * hd * L
+    flops, nbytes = cost.paged_decode(q, pk, pv, pt, lens)
     bound_ms, by = bound(nbytes, flops, dt)
     print(f"  paged {tag} serving shape at length {L}, ms per call (sdpa = library yardstick), "
           f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
@@ -635,15 +643,14 @@ def phase_whisper_kernels(rng) -> dict:
             lens = torch.tensor([length], dtype=torch.int32, device="cuda")
             check(f"paged {tag} self cache of 256, length {length} {dtype}", paged_decode_attention(q, pk, pv, pt, lens),
                   ref.paged_decode_reference(q, pk, pv, pt, lens), TOL[dtype])
-    dt, es = torch.bfloat16, 2
+    dt = torch.bfloat16
     flash = {}
     for name, T in (("encoder", S), ("cross", 128)):
         q, k, v = grad_check.shifted_qkv(rng, T, S, dt)
         err = check(f"flash {tag} {name} shape T {T} S {S}", flash_attention(q, k, v, causal=False),
                     ref.mha_reference(q, k, v, causal=False), TOL[dt])
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
-        flops = 4 * hd * H * T * S  # non-causal: every (query, key) pair
+        flops, nbytes = cost.flash_attention(q, k, v, causal=False)  # every (query, key) pair
         bound_ms, by = bound(nbytes, flops, dt)
         print(f"  flash {tag} {name} shape, ms per call (sdpa = library yardstick), "
               f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
@@ -672,8 +679,7 @@ def phase_whisper_kernels(rng) -> dict:
     graph_replay_matches("paged_decode_attention over whisper's cross cache",
                          lambda: paged_decode_attention(q, pk, pv, pt, lens))
     qs, ks, vs = q.view(1, H, 1, hd), kc.transpose(1, 2), vc.transpose(1, 2)
-    nbytes = 2 * S * K * hd * es + 2 * q.numel() * es + pt.numel() * 4 + 4
-    flops = 4 * H * hd * S
+    flops, nbytes = cost.paged_decode(q, pk, pv, pt, lens)
     bound_ms, by = bound(nbytes, flops, dt)
     print(f"  paged {tag} over the full 1500-slot cross cache, ms per call (sdpa = library yardstick), "
           f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
@@ -741,13 +747,12 @@ def phase_rglru_kernel(rng) -> dict:
     check("rglru carried h0, y (two calls vs one)", torch.cat([y1, y2], 1), y_ref, (1e-5, 0.0))
     check("rglru carried h0, h_last", h2, h_ref, (1e-5, 0.0))
 
-    dt, es = torch.bfloat16, 2
+    dt = torch.bfloat16
     B, T, W = RGLRU_SERVING
     x, r, i, lam = rglru_inputs(rng, B, T, W, dt)
     err = check_rglru("serving shape", x, r, i, lam)
     # x, r, i read once, y written once (bf16); lam read and h_last written (fp32)
-    nbytes = 4 * B * T * W * es + 4 * W + 4 * B * W
-    flops = 6 * B * T * W  # r·base, 2·log_a, 1 − e, i·x, β·u, a·h + (FMA): negligible beside the bytes
+    flops, nbytes = cost.rglru_scan(x, r, i, lam)  # negligible FLOPs beside the bytes
     bound_ms, by = bound(nbytes, flops, torch.float32)
     print(f"  rglru serving shape, ms per call (no library call computes it), "
           f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP fp32 + {2 * B * T * W} exp, {B * T * W} sqrt):")
@@ -791,17 +796,14 @@ def phase_ssd_kernels(rng) -> dict:
         graph_replay_matches(f"ssd_chunked_cuda {dtype}",
                              lambda: torch.cat([a.float().flatten() for a in ssd_chunked_cuda(x, dA, B_, C_, 256)]))
     # the serving shape of mamba2-1.3b in bf16, checked and timed
-    dt, es = torch.bfloat16, 2
+    dt = torch.bfloat16
     b, t, h, p, n, cs = SSD_SERVING
-    nc = -(-t // cs)
     x, dA, B_, C_ = ssd_inputs(rng, b, t, h, p, n, dt)
     e_states, e_output = check_ssd("serving shape", x, dA, B_, C_, cs)
     results = {}
-    tri = cs * (cs + 1) // 2  # causal (i, j) pairs of a chunk
-    nbytes = x.numel() * es + dA.numel() * 4 + 2 * B_.numel() * es + 4 * b * nc * h * (cs * p + p * n)
     # C·Bᵀ once per (batch, chunk): it does not depend on the head when g = 1;
     # at the bf16 rate, the type the kernel multiplies in
-    flops = b * nc * (2 * tri * n + h * (2 * tri * p + 2 * cs * p * n))
+    flops, nbytes = cost.ssd_states(x, dA, B_, C_, cs)
     bound_ms, by = bound(nbytes, flops, dt)
     print(f"  ssd_states serving shape, ms per call (no library call computes it), "
           f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
@@ -809,8 +811,7 @@ def phase_ssd_kernels(rng) -> dict:
     results["ssd_states"] = dict(max_abs_err=e_states, bound_ms=bound_ms, bound_by=by, **t_)
     y_diag, S = ref.ssd_states_reference(x, dA, B_, C_, cs)
     H_in, _ = inter_chunk_scan(S, dA, cs)
-    nbytes = 4 * (y_diag.numel() + dA.numel() + H_in.numel()) + C_.numel() * es + x.numel() * es
-    flops = 2 * b * nc * h * cs * p * n
+    flops, nbytes = cost.ssd_output(x, dA, C_, cs)
     bound_ms, by = bound(nbytes, flops, dt)  # the bf16 kernel multiplies bf16 terms of H_in
     print(f"  ssd_output serving shape, ms per call (no library call computes it), "
           f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
@@ -1032,6 +1033,27 @@ def phase_mesh(smi: str) -> None:
               f"{time.perf_counter() - t0:.1f} s")
         if differ:
             raise AssertionError(f"compressed_psum: card and CPU differ at {differ}")
+        # the elastic restore: a 1-layer qwen3-4b train state saved into the
+        # in-memory stand-in for a KVStore, loaded onto the NCCL mesh
+        cfg, opt = grad_check.cut("qwen3-4b", 1), OptimizerConfig()
+        model = build_model(cfg, "cuda")
+        state = init_state(model, torch.Generator(device="cuda").manual_seed(2), opt)
+        store = BVCheckpointStore(MemoryKV())
+        store.save(1, state)
+        t1 = time.perf_counter()
+        loaded, meta = store.load_distributed(mesh, state, state_axes(model, opt, state))
+        load_s = time.perf_counter() - t1
+        saved, got = leaves_with_paths(state), dict(leaves_with_paths(loaded))
+        differ = [p for p, t in saved if not (rdist.is_dtensor(got[p]) and got[p].device.type == "cuda"
+                                              and torch.equal(got[p].full_tensor().cpu(), t.detach().cpu()))]
+        print(f"[mesh] load_distributed: a qwen3-4b train state at full width, 1 layer ({len(saved)} leaves, "
+              f"{store.db.stats()['bytes']} B in the in-memory store), saved at step {meta['step']} and placed on "
+              f"the (1, 1) NCCL mesh by its state axes in {load_s:.3f} s: every leaf a CUDA DTensor equal to what "
+              f"was saved: {not differ}")
+        if differ or set(got) != {p for p, _ in saved}:
+            raise AssertionError(f"load_distributed: leaves differ from what was saved: {differ}")
+        del model, state, loaded, store
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
 
@@ -1172,17 +1194,21 @@ def phase_grad_check(dtype: str, arch: str = "qwen3-4b") -> dict:
 def phase_train_full(smi: str) -> dict:
     """qwen3-4b at full width and depth, fp32 masters, bf16 compute, AdamW,
     remat, global batch 4 × 512 in 2 microbatches, 4 steps. Returns the
-    flash launches of those steps."""
+    flash launches of those steps, and what phase ``dryrun`` holds its
+    prediction against: the bytes allocated by ``init_state``, the peak
+    allocated, the mean step ms, and one more step counted as the dry run
+    counts (``FlopCounterMode`` and the kernels' tally)."""
     cfg = get_config("qwen3-4b")
-    B, T, A, steps = 4, 512, 2, 4
+    B, T, A, steps = TRAIN_B, TRAIN_T, TRAIN_CFG.accum_steps, 4
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
     model = build_model(cfg, "cuda")
-    opt = OptimizerConfig(warmup_steps=2, total_steps=100)
-    state = init_state(model, torch.Generator(device="cuda").manual_seed(0), opt)
+    state = init_state(model, torch.Generator(device="cuda").manual_seed(0), TRAIN_CFG.opt)
+    state_bytes = torch.cuda.memory_allocated() - before
     n_params = sum(p.numel() for p in model.parameters())
-    step_fn = make_train_step(model, TrainConfig(opt=opt, accum_steps=A, remat=True))
+    step_fn = make_train_step(model, TRAIN_CFG)
     pipe = TokenPipeline(cfg.vocab, B, T, seed=0)
     batches = [{k: torch.from_numpy(v).cuda() for k, v in pipe.next_batch().items()} for _ in range(steps)]
     torch.cuda.synchronize()
@@ -1213,9 +1239,77 @@ def phase_train_full(smi: str) -> dict:
         raise AssertionError(f"training launches {launches} != {expect}")
     if max(peak, reserved) >= MEMORY_LIMIT:
         raise AssertionError(f"peak memory {max(peak, reserved)} B is not under {MEMORY_LIMIT} B")
-    del model, state, step_fn, batches
+    # one more step, counted as the dry run counts (not part of the launch check above)
+    counted = dryrun.count_step(lambda: step_fn(state, batches[0]))
+    torch.cuda.synchronize()
+    del model, state, step_fn, batches, counted["out"]
     torch.cuda.empty_cache()
-    return {"flash_attention": launches["flash_attention"]}
+    return ({"flash_attention": launches["flash_attention"]},
+            {"state_bytes": state_bytes, "peak_allocated": peak, "step_ms": step_ms, "flops": counted["flops"],
+             "aten_flops": counted["aten_flops"], "kernel_flops": counted["kernel_flops"],
+             "kernel_calls": counted["kernel_calls"]})
+
+
+def phase_dryrun(smi: str, card: dict) -> None:
+    """Phase ``dryrun``: (1) ``repro_torch.launch.dryrun`` over every arch ×
+    shape on both production layouts (baseline variant), in this process on
+    the meta device (no JAX on this machine): every cell ``ok``, or ``skip``
+    with the config's own reason, none ``error``; the counts, the seconds and
+    the roofline table of pod16x16 printed. (2) The record of qwen3-4b at
+    phase 6b's shape (global batch 4 × 512, accumulation 2, remat, AdamW) on
+    one rank, held against the card: the argument bytes within ``ARGS_RTOL``
+    of what ``init_state`` allocated, gated; the FLOPs of one step, meta
+    against card, gated equal (and the record's microstep × 2 equal to
+    both); argument + temp bytes over phase 6b's peak and the step's FLOPs
+    over its ms as a share of the bf16 peak (``train_mfu``), recorded."""
+    import importlib.util
+
+    t0 = time.perf_counter()
+    out = _build.BUILD_DIR / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    with open(os.devnull, "w") as devnull, contextlib.redirect_stdout(devnull):
+        rc = dryrun.main(["--all", "--both-meshes", "--out", str(out)])
+    recs = [json.loads(f.read_text()) for f in sorted(out.glob("*.json"))]
+    seconds = time.perf_counter() - t0
+    counts = {st: sum(r["status"] == st for r in recs) for st in ("ok", "skip", "error")}
+    wrong_skips = [(r["arch"], r["shape"]) for r in recs if r["status"] == "skip"
+                   and r["reason"] != get_config(r["arch"]).shape_supported(SHAPES[r["shape"]])[1]]
+    spec = importlib.util.spec_from_file_location("roofline", Path(__file__).resolve().parent / "benchmarks" /
+                                                  "roofline.py")
+    roofline = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(roofline)
+    print(f"[dryrun] every arch x shape on pod16x16 and pod2x16x16 over meta tensors: {len(recs)} cells "
+          f"(expected {2 * len(ARCH_IDS) * len(SHAPES)}), {counts}, {seconds:.1f} s; roofline of pod16x16 "
+          f"(benchmarks/roofline.py):")
+    print(roofline.render(recs, "pod16x16"))
+    if rc != 0 or counts["error"] or wrong_skips or len(recs) != 2 * len(ARCH_IDS) * len(SHAPES):
+        raise AssertionError(f"dry run: rc {rc}, {counts}, skips without the config's reason {wrong_skips}")
+
+    cfg = get_config("qwen3-4b")
+    cell = ShapeCell("phase6b", TRAIN_T, TRAIN_B, "train")
+    rec = dryrun.run_cell("qwen3-4b", cell.name, mesh=MeshLayout((1, 1), ("data", "model")), cell=cell,
+                          train_cfg=TRAIN_CFG, quiet=True)
+    model = build_model(cfg, "meta")
+    state = init_state(model, None, TRAIN_CFG.opt)
+    batch, _ = specs.batch_specs(cfg, cell)
+    meta = dryrun.count_step(lambda: make_train_step(model, TRAIN_CFG)(state, batch))
+    args, temp = rec["memory"]["argument_bytes"], rec["memory"]["temp_bytes"]
+    args_err = abs(args - card["state_bytes"]) / card["state_bytes"]
+    mfu = card["flops"] / (card["step_ms"] / 1e3) / H100["peak_flops_bf16"]
+    print(f"[dryrun] qwen3-4b at phase 6b's shape (4 x 512, accumulation 2, remat, AdamW) on one rank, "
+          f"predicted against the card [{smi}]: argument bytes {args} vs {card['state_bytes']} allocated by "
+          f"init_state (|d| {args_err:.3e}, gate {ARGS_RTOL}); FLOPs of one step: meta {meta['flops']} (aten "
+          f"{meta['aten_flops']}, kernels {meta['kernel_flops']}, calls {meta['kernel_calls']}), card "
+          f"{card['flops']} (aten {card['aten_flops']}, kernels {card['kernel_flops']}, calls "
+          f"{card['kernel_calls']}), record {rec['cost']['flops_per_device']:.0f} "
+          f"({'equal' if meta['flops'] == card['flops'] == rec['cost']['flops_per_device'] else 'DIFFER'}); "
+          f"memory: argument + temp {args + temp} B over phase 6b's peak allocated {card['peak_allocated']} B = "
+          f"{(args + temp) / card['peak_allocated']:.4f} (not gated); train_mfu {mfu:.4f} "
+          f"({card['flops']} FLOP in {card['step_ms']:.1f} ms over {H100['peak_flops_bf16']:.3g} FLOP/s bf16); "
+          f"roofline {rec['roofline']}")
+    if args_err > ARGS_RTOL or not meta["flops"] == card["flops"] == rec["cost"]["flops_per_device"]:
+        raise AssertionError(f"dry run against the card: argument bytes off by {args_err}, FLOPs meta "
+                             f"{meta['flops']} card {card['flops']} record {rec['cost']['flops_per_device']}")
 
 
 def resume_check() -> int:
@@ -1350,7 +1444,8 @@ def main() -> int:
     phase_grad_check("bfloat16")
     phase_grad_check("float32", "granite-moe-1b-a400m")
     phase_grad_check("float32", "whisper-small")
-    by_path["qwen3-4b training"] = phase_train_full(smi)
+    by_path["qwen3-4b training"], train_numbers = phase_train_full(smi)
+    phase_dryrun(smi, train_numbers)
     phase_resume()
     # a kernel's launches: those of the first path that runs it, whose shapes
     # its top-level times are taken at; every path's count beside them, and

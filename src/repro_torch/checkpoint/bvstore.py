@@ -19,8 +19,9 @@ object with the ``KVStore`` surface it uses (``put``/``get``/``range``/
 (``jax.tree_util.keystr``) and META (MessagePack, written by
 :mod:`._msgpack`) are the reference's, so either package restores the
 other's checkpoints. Leaves are torch tensors or numpy arrays; bf16 crosses
-as its uint16 bits under the dtype name ``bfloat16``. Not ported:
-``backup`` and ``load_distributed``.
+as its uint16 bits under the dtype name ``bfloat16``. :meth:`load_distributed`
+re-shards a loaded state onto a ``DeviceMesh``; :meth:`backup` asks the
+injected store for an online image of itself (``checkpoint``).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves_with_paths, tree_map_with_path
+from repro_torch.tree import leaves_with_paths, tree_map, tree_map_with_path
 from . import _msgpack
 
 CHUNK = 4 << 20  # 4 MiB value chunks
@@ -151,6 +152,19 @@ class BVCheckpointStore:
             return tensors, meta
         return tree_map_with_path(lambda path, _: tensors[path], template), meta
 
+    def load_distributed(self, mesh, template, axes_tree, step: int | None = None):
+        """Elastic restore: load the state and place it on ``mesh`` (a
+        ``DeviceMesh``, which may differ from the one the checkpoint was
+        written on) by the logical axes of the parallel ``axes_tree``: every
+        rank reads the whole leaf and keeps its shard
+        (:func:`repro_torch.dist.distribute_tree`), on the mesh's device
+        type. Returns (state of DTensors, meta)."""
+        from repro_torch.dist import distribute_tree
+
+        state, meta = self.load(step, template=template)
+        state = tree_map(lambda t: t.to(mesh.device_type), state)
+        return distribute_tree(state, mesh, axes_tree), meta
+
     # ------------------------------------------------------------------
     # retention
     # ------------------------------------------------------------------
@@ -161,6 +175,23 @@ class BVCheckpointStore:
         prefix = f"ckpt/{step:012d}/".encode()
         self.db.delete_range(prefix, prefix + b"\xff")
         self.db.delete(self._meta_key(step))
+
+    # ------------------------------------------------------------------
+    # online backup
+    # ------------------------------------------------------------------
+    def backup(self, directory: str, base: str | None = None) -> str:
+        """An online, crash-consistent image of the whole store in
+        ``directory`` (the store's ``checkpoint``, e.g. ``DB.checkpoint``,
+        which hard-links its files): every committed training checkpoint,
+        openable as a store of its own, without pausing in-flight saves.
+        ``base`` (a previous backup directory) makes the image incremental,
+        where the store supports it (a single ``DB``). Returns
+        ``directory``."""
+        if base is None:
+            self.db.checkpoint(directory)
+        else:
+            self.db.checkpoint(directory, base=base)
+        return directory
 
     def close(self) -> None:
         self.db.close()

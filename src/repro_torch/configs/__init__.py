@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import importlib
 
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig, ShapeCell
 
 _ARCH_MODULES = {
     "command-r-plus-104b": "command_r_plus_104b",
@@ -34,4 +34,4 @@ def get_config(arch: str) -> ModelConfig:
     return importlib.import_module(f"repro_torch.configs.{mod}").CONFIG
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "get_config"]
+__all__ = ["ARCH_IDS", "SHAPES", "ModelConfig", "ShapeCell", "get_config"]

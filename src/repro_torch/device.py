@@ -17,3 +17,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "pass device='cpu' (or --device cpu) to run on the CPU"
         )
     return dev
+
+
+def kernel_path(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes the card's path: true on CUDA, where the kernels
+    run, and on the meta device, where the dry run
+    (:mod:`repro_torch.launch.dryrun`) follows the card's path op for op with
+    shapes only. A CPU tensor takes the plain path."""
+    return t.is_cuda or t.is_meta

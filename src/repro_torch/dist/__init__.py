@@ -62,7 +62,15 @@ class Axes:
         return len(self.t)
 
 
-def default_rules() -> dict[str, tuple[tuple[str, ...], ...]]:
+class Rules(dict):
+    """A rule table (:func:`default_rules`); :meth:`override` gives a copy
+    with some logical names' candidates replaced (``[]``: replicate)."""
+
+    def override(self, **names) -> "Rules":
+        return Rules(self, **names)
+
+
+def default_rules() -> Rules:
     """Logical name -> ordered candidate mesh-dim groups.
 
     Each candidate is a tuple of mesh dims the tensor dim shards across
@@ -79,7 +87,7 @@ def default_rules() -> dict[str, tuple[tuple[str, ...], ...]]:
     dp = (("pod", "data"), ("data",), ("pod",))
     tp = (("model",),)
     fsdp = (("data",),)
-    return {
+    return Rules({
         "batch": dp,
         "cache_batch": dp,
         "param_embed": fsdp,
@@ -98,7 +106,7 @@ def default_rules() -> dict[str, tuple[tuple[str, ...], ...]]:
         "rnn_width": tp,
         "conv_dim": tp,
         "ssm_heads": tp,
-    }
+    })
 
 
 def mesh_shape(mesh) -> dict[str, int]:

@@ -13,12 +13,18 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 # NVIDIA H100 SXM (data sheet): HBM3 bytes/s, dense bf16 tensor-core FLOP/s,
-# fp32 FLOP/s outside the tensor cores, device memory in bytes
+# fp32 FLOP/s outside the tensor cores, device memory in bytes; the links
+# (data-sheet figures, bytes/s per GPU and direction): NVLink 4 inside a node
+# of 8 GPUs (900 GB/s both ways), and InfiniBand NDR across nodes (one
+# 400 Gb/s port per GPU)
 H100 = {
     "hbm_bw": 3.35e12,
     "peak_flops_bf16": 989e12,
     "peak_flops_fp32": 67e12,
     "hbm_bytes": 80e9,
+    "nvlink_bw": 450e9,
+    "ib_bw": 50e9,
+    "node_gpus": 8,
 }
 
 

@@ -2,11 +2,13 @@
 single-token decode against a KV cache.
 
 On CPU tensors each function is a faithful port of the reference's jnp body,
-and autograd differentiates it. On CUDA tensors, :func:`full_attention` runs
-the flash kernel through :class:`repro_torch.kernels.ops.Attention` (whose
-backward is the same gradient written out in torch ops), and
-:func:`decode_attention` runs the paged-decode kernel over an identity-page
-view of the contiguous cache (a view, not a copy).
+and autograd differentiates it. On CUDA tensors (and on meta tensors, which
+follow the card's path: :func:`repro_torch.device.kernel_path`),
+:func:`full_attention` runs the flash kernel through
+:class:`repro_torch.kernels.ops.Attention` (whose backward is the same
+gradient written out in torch ops), and :func:`decode_attention` runs the
+paged-decode kernel over an identity-page view of the contiguous cache (a
+view, not a copy).
 
 Two §Perf variants (:mod:`repro_torch.dist.perf`) live here: V4, growing
 causal key slices per query chunk in the CPU body (the flash kernel skips
@@ -23,6 +25,7 @@ import math
 import torch
 
 from repro_torch import dist as rdist
+from repro_torch.device import kernel_path
 from repro_torch.dist.perf import perf
 from repro_torch.kernels import ops
 
@@ -54,7 +57,7 @@ def full_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     query blocks so peak memory is O(T·q_chunk); the CUDA kernel keeps only
     one tile of scores on chip, whatever T, and its backward recomputes the
     scores ``q_chunk`` query rows at a time."""
-    if q.is_cuda:
+    if kernel_path(q):
         return ops.Attention.apply(q, k, v, causal, window, q_chunk)
     B, T, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
@@ -115,7 +118,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int | None = Non
     all slots are valid once wrapped (the caller passes min(length, S))."""
     B, _, H, D = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
-    if q.is_cuda:
+    if kernel_path(q):
         # identity page table over the contiguous cache: page b·(S/page) + p
         # is sequence b's p-th page of the (B·S/page, page, K, D) view
         page = identity_page_size(S)

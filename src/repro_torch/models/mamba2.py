@@ -7,7 +7,8 @@ recurrence is an attention-like quadratic block; across chunks a small
 On CPU tensors :func:`ssd_chunked` is a faithful port of the reference's jnp
 body (with its casts to x's dtype and any number of groups). On CUDA tensors
 it runs the two hand-written SSD kernels (``csrc/ssd_scan.cu``), which keep
-every intermediate and the carried state in fp32 and take one group.
+every intermediate and the carried state in fp32 and take one group; meta
+tensors take that path too, shapes only (:func:`repro_torch.device.kernel_path`).
 
 Layout: x (B, T, H, P) heads; B/C (B, T, G, N) groups (G = 1 for
 mamba2-1.3b); state (B, H, P, N). Parameters keep the reference's tree
@@ -21,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.device import kernel_path, resolve_device
 from repro_torch.dist import Axes
 from repro_torch.dist.perf import under_current_flags
 from repro_torch.kernels import ops
@@ -56,7 +57,7 @@ def ssd_chunked(x, dA, B, C, chunk: int):
     """x (b,t,h,p); dA (b,t,h) log-decay (≤0); B,C (b,t,g,n).
     Returns (y (b,t,h,p), final_state (b,h,p,n)): in x's dtype on the CPU,
     as the reference; fp32 from the CUDA kernels."""
-    if x.is_cuda:
+    if kernel_path(x):
         return ops.ssd_scan(x, dA, B, C, chunk)
     b, t, h, p = x.shape
     g, n = B.shape[2], B.shape[3]

@@ -1,6 +1,9 @@
 """The port's BVLSM checkpoint store, manager and MessagePack codec over the
 reference's storage engine (``repro.core.DB`` and a 3-shard ``ShardedDB``,
-injected), and checkpoints restored across the two packages."""
+injected), checkpoints restored across the two packages, online backups, and
+the elastic restore onto a 4-rank gloo mesh against the reference's on 4 host
+devices."""
+import textwrap
 import threading
 
 import jax
@@ -263,3 +266,152 @@ def test_port_checkpoint_resumes_in_reference(tmp_path):
     assert res["step"] == 4 and [m["step"] for m in res["metrics"]] == [4]
     np.testing.assert_allclose(res["metrics"][0]["loss"], port4["metrics"][3]["loss"], atol=TOL, rtol=0)
     _close_states(ref_state, port_state)
+
+
+# ---------------------------------------------------------------------------
+# online backup, and the elastic restore onto a mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["db", "sharded"])
+def test_backup_image_opens_as_a_store(tmp_path, kind):
+    """``backup`` through the injected engine's ``checkpoint``: a store opened
+    on the image reads back every checkpoint committed before it, bit for
+    bit, and none written or deleted on the source after it."""
+    store = BVCheckpointStore(_open(kind, str(tmp_path / "store")))
+    for s in (10, 20):
+        store.save(s, _state(s))
+    assert store.backup(str(tmp_path / "bak")) == str(tmp_path / "bak")
+    store.save(30, _state(30))
+    store.delete_step(10)
+    assert store.steps() == [20, 30]
+    store.close()
+    bak = BVCheckpointStore(_open(kind, str(tmp_path / "bak")))
+    try:
+        assert bak.steps() == [10, 20]
+        for s in (10, 20):
+            out, meta = bak.load(s, template=_state())
+            assert meta["step"] == s
+            _equal(_state(s), out)
+    finally:
+        bak.close()
+
+
+def test_incremental_backup_links_from_its_base(tmp_path):
+    """``base``: the second image is taken against the first (a single
+    ``DB``'s incremental checkpoint) and holds both steps."""
+    store = BVCheckpointStore(_open("db", str(tmp_path / "store")))
+    store.save(1, _state(1))
+    store.backup(str(tmp_path / "b1"))
+    store.save(2, _state(2))
+    store.backup(str(tmp_path / "b2"), base=str(tmp_path / "b1"))
+    store.close()
+    for image, steps in (("b1", [1]), ("b2", [1, 2])):
+        bak = BVCheckpointStore(_open("db", str(tmp_path / image)))
+        try:
+            assert bak.steps() == steps
+            for s in steps:
+                _equal(_state(s), bak.load(s, template=_state())[0])
+        finally:
+            bak.close()
+
+
+LOAD_REF = textwrap.dedent("""
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax, numpy as np
+    from repro.checkpoint.bvstore import BVCheckpointStore
+    from repro.configs import get_config
+    from repro.core import DB, DBConfig
+    from repro.launch.mesh import make_host_mesh
+    from repro.models import build_model
+
+    d = sys.argv[1]
+    cfg = DBConfig.bvlsm(value_threshold=256, memtable_size=256 << 10, num_bvalue_queues=2,
+                         block_cache_bytes=1 << 20, bvcache_bytes=1 << 20)
+    store = BVCheckpointStore("unused", db=DB.open(os.path.join(d, "ref_image"), cfg))
+    model = build_model(get_config("qwen3-4b").reduced(dtype="float32"))
+    template = jax.eval_shape(model.init, jax.random.key(0))
+    mesh = make_host_mesh((2, 2))
+    state, meta = store.load_distributed(mesh, template, model.param_axes())
+    out = {}
+    for path, arr in jax.tree_util.tree_flatten_with_path(state)[0]:
+        for s in arr.addressable_shards:  # mesh position (i, j) is torch rank 2 i + j
+            (i, j), = np.argwhere(mesh.devices == s.device)
+            out[f"{jax.tree_util.keystr(path)}@{2 * i + j}"] = np.asarray(s.data)
+    np.savez(os.path.join(d, "ref_shards.npz"), **out)
+    store.close()
+""")
+
+LOAD_PORT = textwrap.dedent("""
+    import os, sys
+    import numpy as np, torch, torch.distributed as dist
+    rank, d = int(sys.argv[1]), sys.argv[2]
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(d, "rendezvous"), rank=rank, world_size=4)
+    from repro.core import DB, DBConfig
+    from repro_torch import dist as rdist
+    from repro_torch.checkpoint.bvstore import BVCheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.convert import param_tree
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves_with_paths
+
+    cfg = DBConfig.bvlsm(value_threshold=256, memtable_size=256 << 10, num_bvalue_queues=2,
+                         block_cache_bytes=1 << 20, bvcache_bytes=1 << 20)
+    store = BVCheckpointStore(DB.open(os.path.join(d, f"image{rank}"), cfg))
+    model = build_model(get_config("qwen3-4b").reduced(dtype="float32"), "meta")
+    mesh = make_host_mesh((2, 2), ("data", "model"), "cpu")
+    state, meta = store.load_distributed(mesh, param_tree(model), model.param_axes())
+    assert all(rdist.is_dtensor(t) for _, t in leaves_with_paths(state)) and meta["step"] == 7
+    np.savez(os.path.join(d, f"port_shards{rank}.npz"),
+             **{path: t.to_local().numpy() for path, t in leaves_with_paths(state)})
+    store.close()
+    dist.destroy_process_group()
+""")
+
+
+def test_load_distributed_matches_reference_on_4_ranks(tmp_path):
+    """A reduced qwen3-4b parameter tree saved by the port, restored onto a
+    (2, 2) mesh: by the reference's ``load_distributed`` on 4 host devices
+    (one subprocess), and by the port's on 4 gloo ranks (a backup image of
+    the store each): every rank's local shard of every leaf equals the
+    reference's shard on the device at the same mesh position."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.convert import param_tree
+    from repro_torch.models import build_model
+
+    model = build_model(get_config("qwen3-4b").reduced(dtype="float32"), "cpu").init(torch.Generator().manual_seed(0))
+    store = BVCheckpointStore(_open("db", str(tmp_path / "store")))
+    store.save(7, param_tree(model))
+    for image in ["ref_image"] + [f"image{r}" for r in range(4)]:
+        store.backup(str(tmp_path / image))
+    store.close()
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    env.pop("XLA_FLAGS", None)
+    res = subprocess.run([sys.executable, "-c", LOAD_REF, str(tmp_path)], capture_output=True, text=True, env=env,
+                         cwd=str(root), timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    procs = [subprocess.Popen([sys.executable, "-c", LOAD_PORT, str(r), str(tmp_path)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env, cwd=str(root)) for r in range(4)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(log[-3000:] for log in logs)
+    ref = dict(np.load(tmp_path / "ref_shards.npz"))
+    paths = {p for p, _ in leaves_with_paths(param_tree(model))}
+    assert {k.split("@")[0] for k in ref} == paths
+    for r in range(4):
+        port = dict(np.load(tmp_path / f"port_shards{r}.npz"))
+        assert set(port) == paths
+        for path in paths:
+            np.testing.assert_array_equal(port[path], ref[f"{path}@{r}"], err_msg=f"rank {r} {path}")
+    sharded = [p for p in paths if ref[f"{p}@0"].shape != tuple(dict(leaves_with_paths(param_tree(model)))[p].shape)]
+    assert len(sharded) >= 5  # the rules split most leaves over data or model

@@ -912,3 +912,34 @@ def test_compressed_psum_on_card_bit_equal_cpu(cuda, nccl_mesh):
     card = compression.compressed_psum(to(grads), to(err), nccl_mesh.get_group("data"))
     for h, c in zip(host, card):
         assert torch.equal(h["a"], c["a"].cpu()) and torch.equal(h["b"][0], c["b"][0].cpu())
+
+
+@pytest.mark.gpu
+def test_cuda_route_counts_as_the_meta_route(cuda):
+    """Under a tally, each kernel's CUDA route counts the calls, FLOPs and
+    bytes its meta route counts on the same shapes (paged decode at full
+    lengths, the meta route's count), and its output has the meta output's
+    shape and dtype."""
+    from repro_torch.kernels import cost
+
+    rng = np.random.default_rng(13)
+    q, k, v = (_randn(rng, s, "bfloat16", cuda) for s in ((2, 96, 8, 64), (2, 96, 4, 64), (2, 96, 4, 64)))
+    pq, pk, pv = (_randn(rng, s, "bfloat16", cuda) for s in ((2, 8, 64), (4, 64, 4, 64), (4, 64, 4, 64)))
+    table = torch.arange(4, dtype=torch.int32, device=cuda).view(2, 2)
+    lengths = torch.full((2,), 128, dtype=torch.int32, device=cuda)
+    x, B_, C_ = (_randn(rng, s, "bfloat16", cuda) for s in ((1, 300, 4, 64), (1, 300, 1, 128), (1, 300, 1, 128)))
+    dA = -_randn(rng, (1, 300, 4), "float32", cuda).abs() * 0.3
+    rx = _randn(rng, (2, 100, 256), "bfloat16", cuda)
+    rr, ri = torch.sigmoid(rx), torch.sigmoid(rx.flip(1))
+    lam = torch.linspace(0.5, 4.0, 256, device=cuda)
+    calls = [(ops.attention, (q, k, v), {"window": 40}), (ops.paged_decode, (pq, pk, pv, table, lengths), {}),
+             (ops.ssd_scan, (x, dA, B_, C_, 256), {}), (ops.rglru, (rx, rr, ri, lam), {})]
+    for fn, args, kw in calls:
+        with cost.tally() as on_card:
+            got = fn(*args, **kw)
+        meta_args = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
+        with cost.tally() as on_meta:
+            want = fn(*meta_args, **kw)
+        assert (on_card.calls, on_card.flops, on_card.bytes) == (on_meta.calls, on_meta.flops, on_meta.bytes)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        assert [(t.shape, t.dtype) for t in got] == [(t.shape, t.dtype) for t in want]
