@@ -26,9 +26,13 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    head_dim 256, RG-LRU) and mamba2-1.3b (SSD), with times of kernel, plain
    version and the PyTorch library call where one exists (a yardstick only:
    the port never calls it) beside the bound; flash also at the training
-   path's shape (B 2, T 512, H 32, K 8, head_dim 128, causal) in fp32 and
-   bf16 (timed in bf16); both attention kernels at the MoE configs' heads
-   (granite-moe-1b-a400m: head_dim 64, 2 query heads per kv head;
+   steps' calls (qwen3-4b: B 2, T 512, H 32, K 8, head_dim 128, causal;
+   recurrentgemma-9b: B 2, T 512, H 16, K 1, head_dim 256, window 2048) in
+   fp32 and bf16 (timed in bf16), the SSD kernels and the RG-LRU at the training
+   steps' microbatch (mamba2-1.3b: B 2, T 512, 64 heads of 64, state 128,
+   chunk 256; recurrentgemma-9b: B 2, T 512, W 4096; bf16, timed); both
+   attention kernels at the MoE configs' heads (granite-moe-1b-a400m:
+   head_dim 64, 2 query heads per kv head;
    qwen2-moe-a2.7b: head_dim 128, no grouping) in fp32 and bf16, then
    checked and timed at their serving shapes; both at whisper-small's
    (head_dim 64, no grouping) in fp32 and bf16, on inputs whose outputs are
@@ -73,7 +77,7 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    is set to 0,
    and after it each kernel's count is checked against the layers of its
    kind times the prefill or decode calls, and peak memory against 80 GB;
-6. training qwen3-4b: (a) the gradient check, card (flash kernel forward,
+6. training: (a) the gradient check, card (flash kernel forward,
    ``ops.Attention``'s backward) against CPU (the jnp-body port under
    autograd), full width at 2 layers, gated in fp32 and in bf16 compute:
    every leaf's gradient nonzero on both sides, loss |Δ| and each leaf's
@@ -83,13 +87,27 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    the gates and the aux loss, every leaf nonzero), and whisper-small at 2 +
    2 layers in fp32 (``ops.Attention``'s backward non-causal with T ≠ S in
    cross-attention; its key biases read over the model's scale, see
-   ``grad_check.compare``); (b) full width
-   and depth (36 layers, 4.02 B parameters, fp32 masters, bf16 compute,
-   AdamW, remat), global batch 4 × 512 in 2 microbatches, 4 steps through
-   ``make_train_step``, every launch count set to 0 just before: a finite
-   loss at every step, flash launches = 36 × 2 (forward and recompute) × 2
-   microbatches × 4 steps and no other kernel, step ms, tokens/s and peak
-   memory under 80 GB, then one more step counted as the dry run counts;
+   ``grad_check.compare``), then mamba2-1.3b at 2 layers (the SSD kernels'
+   forward, ``ops.SSDScan``'s backward) and recurrentgemma-9b at 3 (R, R,
+   A: the RG-LRU kernel's forward, ``ops.RGLRU``'s backward, flash at hd
+   256), gated in fp32 with every leaf nonzero (``A_log``, ``dt_bias``,
+   ``D``, the conv weights and ``lam`` among them) and recorded in bf16
+   (ROADMAP Queue C 11); (b) 4 steps through ``make_train_step``, fp32
+   masters, bf16 compute, AdamW, remat, global batch 4 × 512 in 2
+   microbatches, the caching allocator's segments growing in place as
+   ``launch/train.py`` trains (``train_allocator``), every launch count set
+   to 0 just before each model: a
+   finite loss at every step, each kernel of the path launched once per
+   layer of its kind per forward and per recompute and no other kernel,
+   step ms, tokens/s and peak memory under 80 GB; qwen3-4b at full width
+   and depth (36 layers, 4.02 B parameters: flash 36 × 2 × 2 × 4 = 576,
+   first with the allocator's default fixed-size segments for comparison,
+   then as the training entry runs it and one more step counted as the dry
+   run counts), mamba2-1.3b at full
+   depth (48 layers, 1.34 B parameters: ``ssd_states`` = ``ssd_output`` =
+   768), recurrentgemma-9b at full width cut to 9 layers (3 R, R, A groups,
+   4.07 B parameters: ``rglru_scan`` 96, flash 48; its 38 layers need ~167
+   GB of state);
    dryrun: ``repro_torch.launch.dryrun`` over every arch × shape on both
    production layouts on the meta device (every cell ok or skip), and the
    qwen3-4b record at (b)'s shape on one rank held against (b): argument
@@ -125,7 +143,7 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import dist as rdist  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import cut, get_config  # noqa: E402
 from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
 from repro_torch.dist.perf import PerfConfig, perf_context  # noqa: E402
 from repro_torch.kernels import _build, cost, decode_attention, ref  # noqa: E402
@@ -368,27 +386,14 @@ def phase_attention_kernels(rng) -> dict:
 
     phase_attention_edges(rng)
 
-    dt = torch.bfloat16
     results = {}
     flash, paged = attention_serving_shapes(rng, "qwen3-4b", 32, 8, 128)
     results["flash_attention"], results["paged_decode"] = flash, paged
-    # the training path's shape (phase 6): fp32 takes the CUDA-core kernel, bf16 the tensor-core one
-    B, T, H, K, hd = grad_check.TRAIN_SHAPE
-    train_rng = np.random.default_rng(1)  # the later checks keep their inputs
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = grad_check.shifted_qkv(train_rng, T, T, dtype, B=B, H=H, K=K, hd=hd)
-        err = check(f"flash training shape {B},{T},{H},{K},{hd} causal {dtype}", flash_attention(q, k, v),
-                    ref.mha_reference(q, k, v), TOL[dtype])
-        results["flash_attention"][f"max_abs_err_training_{str(dtype)[6:]}"] = err
-    # timed in bf16, the training path's compute dtype
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    flops, nbytes = cost.flash_attention(q, k, v)
-    bound_ms, by = bound(nbytes, flops, dt)
-    print(f"  flash training shape bf16, ms per call (sdpa = library yardstick), "
-          f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
-    t = timings(lambda: flash_attention(q, k, v), lambda: ref.mha_reference(q, k, v),
-                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), plain_iters=20)
-    results["flash_attention"]["training"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)
+    # phase 6b's flash calls (their own generators: the later checks keep their inputs)
+    results["flash_attention"]["training"] = flash_training(np.random.default_rng(1), "qwen3-4b",
+                                                            grad_check.TRAIN_SHAPE)
+    results["flash_attention"]["hd256 training"] = flash_training(np.random.default_rng(2), "recurrentgemma-9b",
+                                                                  grad_check.HD256_TRAIN_SHAPE)
 
     hd256 = phase_hd256_kernels(rng)
     results["flash_attention"]["hd256"] = hd256["flash_attention"]
@@ -398,6 +403,30 @@ def phase_attention_kernels(rng) -> dict:
     for name, numbers in phase_whisper_kernels(rng).items():
         results[name]["whisper-small"] = numbers
     return results
+
+
+def flash_training(rng, arch: str, shape) -> dict:
+    """Flash at one microbatch of ``arch``'s phase-6b step, ``shape`` = (B,
+    T, H, K, hd, window), causal: checked against its plain version in fp32
+    (the CUDA-core kernel) and bf16 (the tensor-core one), then timed in
+    bf16, the step's compute dtype, beside its bound and SDPA."""
+    B, T, H, K, hd, window = shape
+    assert window is None or window >= T  # every causal pair: SDPA's is_causal computes the same
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = grad_check.shifted_qkv(rng, T, T, dtype, B=B, H=H, K=K, hd=hd)
+        errs[dtype] = check(f"flash {arch} training shape {B},{T},{H},{K},{hd} causal window={window} {dtype}",
+                            flash_attention(q, k, v, window=window), ref.mha_reference(q, k, v, window=window),
+                            TOL[dtype])
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    flops, nbytes = cost.flash_attention(q, k, v, window=window)
+    bound_ms, by = bound(nbytes, flops, torch.bfloat16)
+    print(f"  flash {arch} training shape bf16, ms per call (sdpa = library yardstick), "
+          f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
+    t = timings(lambda: flash_attention(q, k, v, window=window), lambda: ref.mha_reference(q, k, v, window=window),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), plain_iters=20)
+    return dict(max_abs_err=errs[torch.bfloat16], max_abs_err_float32=errs[torch.float32], bound_ms=bound_ms,
+                bound_by=by, **t)
 
 
 # paged decode's partials at their edges: (B, H, K, hd, P, page, maxp, split
@@ -757,7 +786,17 @@ def phase_rglru_kernel(rng) -> dict:
     print(f"  rglru serving shape, ms per call (no library call computes it), "
           f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP fp32 + {2 * B * T * W} exp, {B * T * W} sqrt):")
     t = timings(lambda: rglru_scan(x, r, i, lam), lambda: ref.rglru_reference(x, r, i, lam), plain_iters=2)
-    return {"rglru_scan": dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)}
+    results = {"rglru_scan": dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)}
+    B, T, W = grad_check.RGLRU_TRAIN_SHAPE
+    x, r, i, lam = rglru_inputs(rng, B, T, W, dt)
+    err = check_rglru("training shape", x, r, i, lam)
+    flops, nbytes = cost.rglru_scan(x, r, i, lam)
+    bound_ms, by = bound(nbytes, flops, torch.float32)
+    print(f"  rglru training shape (B {B}, T {T}, W {W}, bf16), ms per call (no library call computes it), "
+          f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP fp32):")
+    t = timings(lambda: rglru_scan(x, r, i, lam), lambda: ref.rglru_reference(x, r, i, lam), plain_iters=2)
+    results["rglru_scan"]["training"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, **t)
+    return results
 
 
 def ssd_inputs(rng, b, t, h, p, n, dtype):
@@ -795,17 +834,24 @@ def phase_ssd_kernels(rng) -> dict:
         x, dA, B_, C_ = ssd_inputs(rng, 1, 300, 4, 64, 128, dtype)
         graph_replay_matches(f"ssd_chunked_cuda {dtype}",
                              lambda: torch.cat([a.float().flatten() for a in ssd_chunked_cuda(x, dA, B_, C_, 256)]))
-    # the serving shape of mamba2-1.3b in bf16, checked and timed
+    # the serving shape of mamba2-1.3b and one microbatch of its phase-6b
+    # step, in bf16, checked and timed
+    serving, training = time_ssd(rng, "serving", SSD_SERVING), time_ssd(rng, "training", grad_check.SSD_TRAIN_SHAPE)
+    return {k: {**serving[k], "training": training[k]} for k in serving}
+
+
+def time_ssd(rng, label: str, shape) -> dict:
+    """Both SSD kernels checked and timed in bf16 at ``shape``: {kernel: numbers}."""
     dt = torch.bfloat16
-    b, t, h, p, n, cs = SSD_SERVING
+    b, t, h, p, n, cs = shape
     x, dA, B_, C_ = ssd_inputs(rng, b, t, h, p, n, dt)
-    e_states, e_output = check_ssd("serving shape", x, dA, B_, C_, cs)
+    e_states, e_output = check_ssd(f"{label} shape", x, dA, B_, C_, cs)
     results = {}
     # C·Bᵀ once per (batch, chunk): it does not depend on the head when g = 1;
     # at the bf16 rate, the type the kernel multiplies in
     flops, nbytes = cost.ssd_states(x, dA, B_, C_, cs)
     bound_ms, by = bound(nbytes, flops, dt)
-    print(f"  ssd_states serving shape, ms per call (no library call computes it), "
+    print(f"  ssd_states {label} shape {shape}, ms per call (no library call computes it), "
           f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
     t_ = timings(lambda: ssd_states(x, dA, B_, C_, cs), lambda: ref.ssd_states_reference(x, dA, B_, C_, cs))
     results["ssd_states"] = dict(max_abs_err=e_states, bound_ms=bound_ms, bound_by=by, **t_)
@@ -813,7 +859,7 @@ def phase_ssd_kernels(rng) -> dict:
     H_in, _ = inter_chunk_scan(S, dA, cs)
     flops, nbytes = cost.ssd_output(x, dA, C_, cs)
     bound_ms, by = bound(nbytes, flops, dt)  # the bf16 kernel multiplies bf16 terms of H_in
-    print(f"  ssd_output serving shape, ms per call (no library call computes it), "
+    print(f"  ssd_output {label} shape {shape}, ms per call (no library call computes it), "
           f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
     t_ = timings(lambda: ssd_output(y_diag, dA, C_, H_in, dt), lambda: ref.ssd_output_reference(y_diag, dA, C_, H_in, dt))
     results["ssd_output"] = dict(max_abs_err=e_output, bound_ms=bound_ms, bound_by=by, **t_)
@@ -847,7 +893,7 @@ def phase_parity(arch: str, prompt_len: int, n_layers: int = 2) -> None:
     copied to the CPU."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = grad_check.cut(arch, n_layers, dtype="float32")
+    cfg = cut(arch, n_layers, dtype="float32")
     t0 = time.perf_counter()
     gpu = build_model(cfg, "cuda").init(torch.Generator(device="cuda").manual_seed(0))
     cpu = build_model(cfg, "cpu")
@@ -890,7 +936,7 @@ def phase_bf16_record(arch: str, prompt_len: int, n_layers: int = 2, steps: int 
     own argmax. Prints the logits' max|Δ| over the prefill and the steps
     before the tokens first differ, and that first step (None: never). Fails
     only on logits that are not finite or of the wrong shape."""
-    cfg = grad_check.cut(arch, n_layers)
+    cfg = cut(arch, n_layers)
     t0 = time.perf_counter()
     gpu = build_model(cfg, "cuda", param_dtype=torch.bfloat16).init(torch.Generator(device="cuda").manual_seed(0))
     cpu = build_model(cfg, "cpu", param_dtype=torch.bfloat16)
@@ -986,7 +1032,7 @@ def phase_mesh(smi: str) -> None:
         flags = PerfConfig(**{f.name: True for f in dataclasses.fields(PerfConfig)})
         rng = np.random.default_rng(0)
         for arch in ("qwen3-4b", "granite-moe-1b-a400m"):
-            cfg = grad_check.cut(arch, 2)
+            cfg = cut(arch, 2)
             model = build_model(cfg, "cuda", param_dtype=torch.bfloat16).init(
                 torch.Generator(device="cuda").manual_seed(0))
             prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(1, MESH_PROMPT))).long().cuda()
@@ -1035,7 +1081,7 @@ def phase_mesh(smi: str) -> None:
             raise AssertionError(f"compressed_psum: card and CPU differ at {differ}")
         # the elastic restore: a 1-layer qwen3-4b train state saved into the
         # in-memory stand-in for a KVStore, loaded onto the NCCL mesh
-        cfg, opt = grad_check.cut("qwen3-4b", 1), OptimizerConfig()
+        cfg, opt = cut("qwen3-4b", 1), OptimizerConfig()
         model = build_model(cfg, "cuda")
         state = init_state(model, torch.Generator(device="cuda").manual_seed(2), opt)
         store = BVCheckpointStore(MemoryKV())
@@ -1170,84 +1216,98 @@ class MemoryKV:
         pass
 
 
-def phase_grad_check(dtype: str, arch: str = "qwen3-4b") -> dict:
-    """Gradients of ``arch`` at full width, 2 layers, fp32 masters, compute
-    in ``dtype``, one TokenPipeline batch (B 2, T 512): the card (the flash
-    kernel forward, ``ops.Attention``'s backward; remat; a MoE model's FFN
-    in torch ops) against the CPU (the jnp-body port under autograd),
-    weights drawn on the card and copied to the CPU
-    (``launch/grad_check.py``). Gated at ``grad_check.GRAD_RTOL``, every
-    leaf's gradient nonzero on both sides (a MoE model's router included)."""
+def phase_grad_check(dtype: str, arch: str = "qwen3-4b", n_layers: int = 2, gated: bool = True) -> dict:
+    """Gradients of ``arch`` at full width, ``n_layers`` layers, fp32
+    masters, compute in ``dtype``, one TokenPipeline batch (B 2, T 512): the
+    card (the flash kernel forward, ``ops.Attention``'s backward; the SSD
+    kernels' forward, ``ops.SSDScan``'s backward; the RG-LRU kernel's
+    forward, ``ops.RGLRU``'s backward; remat; a MoE model's FFN in torch
+    ops) against the CPU (the jnp-body ports under autograd), weights drawn
+    on the card and copied to the CPU (``launch/grad_check.py``). Gated at
+    ``grad_check.GRAD_RTOL``, every leaf's gradient nonzero on both sides (a
+    MoE model's router included); with ``gated`` False, recorded only."""
     t0 = time.perf_counter()
-    r = grad_check.run(dtype, arch)
+    r = grad_check.run(dtype, arch, n_layers)
     tol, ok = grad_check.GRAD_RTOL[dtype], grad_check.passes(r, dtype)
-    print(f"[6a gradient check] {arch} full width, 2 layers, fp32 masters, {dtype} compute, B 2 T 512: "
+    verdict = ("ok" if ok else "FAIL") if gated else "recorded, not gated"
+    print(f"[6a gradient check] {arch} full width, {n_layers} layers, fp32 masters, {dtype} compute, B 2 T 512: "
           f"loss card {r['loss_card']:.6f} cpu {r['loss_cpu']:.6f} |d| {r['loss_abs_err']:.3e}, worst leaf "
           f"{r['worst_leaf']} max|dg|/max|g| {r['worst_rel_err']:.3e}, leaves with a zero gradient {r['zero']}, "
-          f"tol {tol:.0e} {'ok' if ok else 'FAIL'}, {time.perf_counter() - t0:.1f} s")
-    if not ok:
-        raise AssertionError(f"gradient check {dtype}: {r}")
+          f"tol {tol:.0e} {verdict}, {time.perf_counter() - t0:.1f} s")
+    if gated and not ok:
+        raise AssertionError(f"gradient check {arch} {dtype}: {r}")
     torch.cuda.empty_cache()
     return r
 
 
-def phase_train_full(smi: str) -> dict:
-    """qwen3-4b at full width and depth, fp32 masters, bf16 compute, AdamW,
-    remat, global batch 4 × 512 in 2 microbatches, 4 steps. Returns the
-    flash launches of those steps, and what phase ``dryrun`` holds its
-    prediction against: the bytes allocated by ``init_state``, the peak
-    allocated, the mean step ms, and one more step counted as the dry run
-    counts (``FlopCounterMode`` and the kernels' tally)."""
-    cfg = get_config("qwen3-4b")
-    B, T, A, steps = TRAIN_B, TRAIN_T, TRAIN_CFG.accum_steps, 4
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    before = torch.cuda.memory_allocated()
-    model = build_model(cfg, "cuda")
-    state = init_state(model, torch.Generator(device="cuda").manual_seed(0), TRAIN_CFG.opt)
-    state_bytes = torch.cuda.memory_allocated() - before
-    n_params = sum(p.numel() for p in model.parameters())
-    step_fn = make_train_step(model, TRAIN_CFG)
-    pipe = TokenPipeline(cfg.vocab, B, T, seed=0)
-    batches = [{k: torch.from_numpy(v).cuda() for k, v in pipe.next_batch().items()} for _ in range(steps)]
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    for fn in WRAPPERS.values():
-        fn.launches = 0
-    losses, ms = [], []
-    for batch in batches:
-        t1 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
+def phase_train_full(smi: str, arch: str = "qwen3-4b", n_layers: int | None = None,
+                     grow_segments: bool = True) -> tuple:
+    """``arch`` at full width, cut to ``n_layers`` (None: its full depth),
+    fp32 masters, bf16 compute, AdamW, remat, global batch 4 × 512 in 2
+    microbatches, 4 steps, every launch count set to 0 just before: each
+    kernel of the path launched once per layer of its kind in every forward
+    and every remat recompute (``layers_per_call``'s prefill counts × 2 ×
+    microbatches × steps), no other kernel; finite losses, peak memory under
+    ``MEMORY_LIMIT``. With ``grow_segments`` the caching allocator is the
+    training entry's (``launch/train.py::train_allocator``), else its
+    default fixed-size segments. Returns the path's launches, and what phase
+    ``dryrun`` holds its prediction against: the bytes allocated by
+    ``init_state``, the peak allocated, the mean step ms, and one more step
+    counted as the dry run counts (``FlopCounterMode`` and the kernels'
+    tally)."""
+    segments = "growing" if grow_segments else "fixed-size"
+    with train.train_allocator("cuda") if grow_segments else contextlib.nullcontext():
+        cfg = get_config(arch) if n_layers is None else cut(arch, n_layers)
+        B, T, A, steps = TRAIN_B, TRAIN_T, TRAIN_CFG.accum_steps, 4
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        before = torch.cuda.memory_allocated()
+        model = build_model(cfg, "cuda")
+        state = init_state(model, torch.Generator(device="cuda").manual_seed(0), TRAIN_CFG.opt)
+        state_bytes = torch.cuda.memory_allocated() - before
+        n_params = sum(p.numel() for p in model.parameters())
+        step_fn = make_train_step(model, TRAIN_CFG)
+        pipe = TokenPipeline(cfg.vocab, B, T, seed=0)
+        batches = [{k: torch.from_numpy(v).cuda() for k, v in pipe.next_batch().items()} for _ in range(steps)]
         torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t1) * 1e3)
-        losses.append(float(metrics["loss"]))
-    launches = {k: fn.launches for k, fn in WRAPPERS.items()}
-    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
-    step_ms = sum(ms[1:]) / len(ms[1:])
-    print(f"[6b train] qwen3-4b {cfg.n_layers} layers d_model {cfg.d_model}, {n_params} parameters, fp32 masters, "
-          f"bf16 compute, AdamW, remat, global batch {B} x {T} in {A} microbatches: losses {losses}, "
-          f"grad_norm {float(metrics['grad_norm']):.4f}, step ms {['%.1f' % t for t in ms]}, steps 2-{steps} "
-          f"{step_ms:.1f} ms, {B * T / step_ms * 1e3:.1f} training tokens/s, peak allocated {peak / 1e9:.2f} GB, "
-          f"reserved {reserved / 1e9:.2f} GB (limit {MEMORY_LIMIT / 1e9:.0f} GB), set-up {setup_s:.1f} s, "
-          f"launches {launches} [{smi}]")
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"a training loss is not finite: {losses}")
-    expect = {k: 0 for k in WRAPPERS}
-    expect["flash_attention"] = cfg.n_layers * 2 * A * steps  # forward and remat recompute, per microbatch
-    if launches != expect:
-        raise AssertionError(f"training launches {launches} != {expect}")
-    if max(peak, reserved) >= MEMORY_LIMIT:
-        raise AssertionError(f"peak memory {max(peak, reserved)} B is not under {MEMORY_LIMIT} B")
-    # one more step, counted as the dry run counts (not part of the launch check above)
-    counted = dryrun.count_step(lambda: step_fn(state, batches[0]))
-    torch.cuda.synchronize()
-    del model, state, step_fn, batches, counted["out"]
-    torch.cuda.empty_cache()
-    return ({"flash_attention": launches["flash_attention"]},
-            {"state_bytes": state_bytes, "peak_allocated": peak, "step_ms": step_ms, "flops": counted["flops"],
-             "aten_flops": counted["aten_flops"], "kernel_flops": counted["kernel_flops"],
-             "kernel_calls": counted["kernel_calls"]})
+        setup_s = time.perf_counter() - t0
+        for fn in WRAPPERS.values():
+            fn.launches = 0
+        losses, ms = [], []
+        for batch in batches:
+            t1 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(metrics["loss"]))
+        launches = {k: fn.launches for k, fn in WRAPPERS.items()}
+        peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+        step_ms = sum(ms[1:]) / len(ms[1:])
+        print(f"[6b train] {arch} {cfg.n_layers} layers d_model {cfg.d_model}, {n_params} parameters, fp32 masters, "
+              f"bf16 compute, AdamW, remat, global batch {B} x {T} in {A} microbatches, allocator segments {segments}: "
+              f"losses {losses}, grad_norm {float(metrics['grad_norm']):.4f}, step ms {['%.1f' % t for t in ms]}, "
+              f"steps 2-{steps} {step_ms:.1f} ms, {B * T / step_ms * 1e3:.1f} training tokens/s, state "
+              f"{state_bytes / 1e9:.2f} GB, peak allocated {peak / 1e9:.2f} GB, reserved {reserved / 1e9:.2f} GB "
+              f"(limit {MEMORY_LIMIT / 1e9:.0f} GB), set-up {setup_s:.1f} s, launches {launches} [{smi}]")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{arch}: a training loss is not finite: {losses}")
+        per_call = {k: pre for k, (pre, _) in layers_per_call(cfg).items() if pre}
+        expect = {k: 0 for k in WRAPPERS}
+        expect.update({k: n * 2 * A * steps for k, n in per_call.items()})  # forward and remat recompute
+        if launches != expect:
+            raise AssertionError(f"{arch}: training launches {launches} != {expect}")
+        if max(peak, reserved) >= MEMORY_LIMIT:
+            raise AssertionError(f"{arch}: peak memory {max(peak, reserved)} B is not under {MEMORY_LIMIT} B")
+        # one more step, counted as the dry run counts (not part of the launch check above)
+        counted = dryrun.count_step(lambda: step_fn(state, batches[0]))
+        torch.cuda.synchronize()
+        del model, state, step_fn, batches, counted["out"]
+        torch.cuda.empty_cache()
+        return ({k: launches[k] for k in per_call},
+                {"state_bytes": state_bytes, "peak_allocated": peak, "step_ms": step_ms, "flops": counted["flops"],
+                 "aten_flops": counted["aten_flops"], "kernel_flops": counted["kernel_flops"],
+                 "kernel_calls": counted["kernel_calls"]})
 
 
 def phase_dryrun(smi: str, card: dict) -> None:
@@ -1320,7 +1380,7 @@ def resume_check() -> int:
     against 2 steps, then a new trainer resuming from the store for 2 more.
     Prints one JSON line; exits non-zero unless every leaf is bit-equal."""
     torch.use_deterministic_algorithms(True)
-    cfg = grad_check.cut("qwen3-4b", 1)
+    cfg = cut("qwen3-4b", 1)
     t0 = time.perf_counter()
 
     def trainer_run(store, steps):
@@ -1444,21 +1504,29 @@ def main() -> int:
     phase_grad_check("bfloat16")
     phase_grad_check("float32", "granite-moe-1b-a400m")
     phase_grad_check("float32", "whisper-small")
+    for arch, n_layers in (("mamba2-1.3b", 2), ("recurrentgemma-9b", 3)):
+        phase_grad_check("float32", arch, n_layers)
+        phase_grad_check("bfloat16", arch, n_layers, gated=False)  # ROADMAP Queue C 11
+    phase_train_full(smi, grow_segments=False)  # the allocator's cost, recorded
     by_path["qwen3-4b training"], train_numbers = phase_train_full(smi)
+    by_path["mamba2-1.3b training"], _ = phase_train_full(smi, "mamba2-1.3b")
+    by_path["recurrentgemma-9b training"], _ = phase_train_full(smi, "recurrentgemma-9b", n_layers=9)
     phase_dryrun(smi, train_numbers)
     phase_resume()
     # a kernel's launches: those of the first path that runs it, whose shapes
     # its top-level times are taken at; every path's count beside them, and
     # the times at another path's shapes (head_dim 256, the MoE heads, the
-    # training shape) with that path's count
-    sub_paths = {"hd256": "recurrentgemma-9b", "training": "qwen3-4b training",
+    # training shapes) with that path's count
+    sub_paths = {"hd256": "recurrentgemma-9b", "hd256 training": "recurrentgemma-9b training",
                  **{arch: arch for arch, *_ in MOE_HEADS}, "whisper-small": "whisper-small"}
+    training_path = {"flash_attention": "qwen3-4b training", "ssd_states": "mamba2-1.3b training",
+                     "ssd_output": "mamba2-1.3b training", "rglru_scan": "recurrentgemma-9b training"}
     line = {"kernels": []}
     for k in KERNELS:
         counts = {arch: c[k] for arch, c in by_path.items() if k in c}
         entry = {"name": k, **KERNELS[k], "launches": next(iter(counts.values())), "launches_by_path": counts,
                  **results[k]}
-        for key, path in sub_paths.items():
+        for key, path in {**sub_paths, "training": training_path.get(k)}.items():
             if key in entry:
                 entry[key] = {**entry[key], "launches": counts[path]}
         line["kernels"].append(entry)

@@ -7,6 +7,7 @@ phi3-medium-14b, command-r-plus-104b), vlm (internvl2-76b), moe
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from .base import SHAPES, ModelConfig, ShapeCell
@@ -34,4 +35,10 @@ def get_config(arch: str) -> ModelConfig:
     return importlib.import_module(f"repro_torch.configs.{mod}").CONFIG
 
 
-__all__ = ["ARCH_IDS", "SHAPES", "ModelConfig", "ShapeCell", "get_config"]
+def cut(arch: str, n_layers: int, **overrides) -> ModelConfig:
+    """``arch`` at full width cut to ``n_layers`` (an encoder too)."""
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=n_layers, enc_layers=min(cfg.enc_layers, n_layers), **overrides)
+
+
+__all__ = ["ARCH_IDS", "SHAPES", "ModelConfig", "ShapeCell", "cut", "get_config"]

@@ -7,11 +7,14 @@ and dtypes) and counts the kernel's work (:mod:`.cost`) in the active tally,
 as the CUDA route does while one is active. There is no flag and no
 fallback: a CUDA launch that fails raises.
 
-The CUDA kernels have no backward. Attention gets one in :class:`Attention`
-(the kernel's forward, the gradient in torch ops). The others raise on CUDA
-when autograd would record them, rather than return a tensor with no
-``grad_fn``; the CPU versions are plain torch ops and differentiate, and the
-meta versions may be recorded, as no kernel runs there.
+The CUDA kernels have no backward. Attention, the SSD scan and the RG-LRU
+get one in :class:`Attention`, :class:`SSDScan` and :class:`RGLRU`: the
+kernel's forward, the gradient in torch ops (:func:`attention_backward`,
+:func:`ssd_backward`, :func:`rglru_backward`). The bare entry points raise on
+CUDA when autograd would record them, rather than return a tensor with no
+``grad_fn``, and paged decode has no Function (decode serves and does not
+train); the CPU versions are plain torch ops and differentiate, and the meta
+versions may be recorded, as no kernel runs there.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ from .decode_attention import paged_decode_attention
 from .flash_attention import attention_backward, flash_attention
 from .rglru_scan import rglru_scan
 from .ssd_scan import inter_chunk_scan, ssd_chunked_cuda
+
+RGLRU_BACKWARD_CHUNK = 64  # rglru_backward's chunk: 2·64 + ⌈T/64⌉ Python steps over T
 
 
 def _no_autograd(name: str, remedy: str, *tensors) -> None:
@@ -94,8 +99,7 @@ def ssd_scan(x, dA, B_, C_, chunk):
         del y_diag, S, H_in  # ssd_output has read them
         return y, H_last
     if x.is_cuda:
-        _no_autograd("SSD", "its gradient on CUDA is ROADMAP Queue A item 21 (mamba2 trains on the CPU only)",
-                     x, dA, B_, C_)
+        _no_autograd("SSD", "train through ops.SSDScan (models/mamba2.ssd_chunked)", x, dA, B_, C_)
         if cost.counting():
             cost.record("ssd_states", cost.ssd_states(x, dA, B_, C_, chunk))
             cost.record("ssd_output", cost.ssd_output(x, dA, C_, chunk))
@@ -112,9 +116,92 @@ def rglru(x, r, i, lam, h0=None):
         B, _, W = x.shape
         return _empty(x.shape, x.dtype, x), _empty((B, W), torch.float32, x)
     if x.is_cuda:
-        _no_autograd("RG-LRU", "its gradient on CUDA is ROADMAP Queue A item 21 (recurrentgemma trains on the CPU "
-                     "only)", x, r, i, lam, h0)
+        _no_autograd("RG-LRU", "train through ops.RGLRU (models/rglru.rglru_scan)", x, r, i, lam, h0)
         if cost.counting():
             cost.record("rglru_scan", cost.rglru_scan(x, r, i, lam, h0))
         return rglru_scan(x, r, i, lam, h0)
     return ref.rglru_reference(x, r, i, lam, h0)
+
+
+def _grad_leaves(ctx, tensors):
+    """Detached copies of the saved inputs; those whose gradient the
+    backward must give require one."""
+    return [None if t is None else t.detach().requires_grad_(need)
+            for t, need in zip(tensors, ctx.needs_input_grad)]
+
+
+def _input_grads(leaves, outs, cotangents) -> tuple:
+    """∂(Σ out·cotangent)/∂leaf for each leaf that requires a gradient, None
+    for the others, zeros where no kept output depends on it (the final SSD
+    state on C); an absent cotangent (None) drops its output. Autograd
+    calls a backward only when some output has a cotangent and some input
+    needs a gradient."""
+    pairs = [(o, g.float()) for o, g in zip(outs, cotangents) if g is not None]
+    want = [t for t in leaves if t is not None and t.requires_grad]
+    grads = iter(torch.autograd.grad([o for o, _ in pairs], want, [g for _, g in pairs], allow_unused=True,
+                                     materialize_grads=True))
+    return tuple(next(grads) if t is not None and t.requires_grad else None for t in leaves)
+
+
+def ssd_backward(x, dA, B_, C_, chunk, dy, dH):
+    """The gradient of :func:`ssd_scan` into (x, dA, B_, C_), each in its
+    input's dtype (None where an input needs none), given the cotangents of
+    y and of the final state (either may be None). It recomputes the
+    kernels' own decomposition in fp32, as the kernels keep their
+    intermediates: ``ref.ssd_states_reference``, :func:`inter_chunk_scan`,
+    ``ref.ssd_output_reference``, then differentiates it (g = 1, as the
+    kernels)."""
+    with torch.enable_grad():
+        xf, dAf, Bf, Cf = (t.float() for t in (x, dA, B_, C_))
+        y_diag, S = ref.ssd_states_reference(xf, dAf, Bf, Cf, chunk)
+        H_in, H_last = inter_chunk_scan(S, dAf, chunk)
+        y = ref.ssd_output_reference(y_diag, dAf, Cf, H_in, torch.float32)
+        return _input_grads((x, dA, B_, C_), (y, H_last), (dy, dH))
+
+
+def rglru_backward(x, r, i, lam, h0, dy, dh):
+    """The gradient of :func:`rglru` into (x, r, i, lam, h0), each in its
+    input's dtype (None where an input needs none or h0 is None), given the
+    cotangents of y and of h_last (either may be None). It recomputes the
+    recurrence in fp32 through ``ref.rglru_chunked_reference`` (chunks of
+    ``RGLRU_BACKWARD_CHUNK``: a Python step per step of one chunk and per
+    chunk, never per step of T) and differentiates it."""
+    with torch.enable_grad():
+        y, h_last = ref.rglru_chunked_reference(x.float(), r.float(), i.float(), lam.float(),
+                                                None if h0 is None else h0.float(), chunk=RGLRU_BACKWARD_CHUNK)
+        return _input_grads((x, r, i, lam, h0), (y, h_last), (dy, dh))
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan with a gradient: the forward is :func:`ssd_scan` (the two
+    SSD kernels on the card, the sequential plain version on the CPU, shapes
+    only on meta), the backward :func:`ssd_backward`. It saves x, dA, B_ and
+    C_ only."""
+
+    @staticmethod
+    def forward(ctx, x, dA, B_, C_, chunk):
+        ctx.save_for_backward(x, dA, B_, C_)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return ssd_scan(x, dA, B_, C_, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dH):
+        x, dA, B_, C_ = _grad_leaves(ctx, ctx.saved_tensors)
+        return (*ssd_backward(x, dA, B_, C_, ctx.chunk, dy, dH), None)
+
+
+class RGLRU(torch.autograd.Function):
+    """The RG-LRU with a gradient: the forward is :func:`rglru` (the RG-LRU
+    kernel on the card, the sequential plain version on the CPU, shapes only
+    on meta), the backward :func:`rglru_backward`."""
+
+    @staticmethod
+    def forward(ctx, x, r, i, lam, h0):
+        ctx.save_for_backward(x, r, i, lam, h0)
+        ctx.set_materialize_grads(False)
+        return rglru(x, r, i, lam, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        return rglru_backward(*_grad_leaves(ctx, ctx.saved_tensors), dy, dh)

@@ -4,6 +4,12 @@ memory per rank, FLOPs, collectives and roofline terms, with no device.
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--both-meshes] [--out artifacts/dryrun]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch recurrentgemma-9b --layers 9 --one-rank-step 4 512 2
+
+``--layers`` cuts every arch's depth. ``--one-rank-step B T A`` runs, in
+place of the shape cells on the production layouts, one rank's train step
+at global batch B × T in A microbatches (AdamW, remat): the step
+``chip_smoke.py`` phase 6b runs on one card.
 
 Each cell writes ``<out>/<arch>__<shape>__<mesh>[__variant].json`` in the
 reference's record layout, which ``benchmarks/roofline.py --dir <out>``
@@ -34,12 +40,12 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
-from repro_torch.configs import ARCH_IDS, SHAPES, ShapeCell, get_config
+from repro_torch.configs import ARCH_IDS, SHAPES, ShapeCell, cut, get_config
 from repro_torch.dist import default_rules, mesh_shape
 from repro_torch.dist.perf import PerfConfig, perf_context
 from repro_torch.kernels import cost as kcost
 from repro_torch.launch.analytic import analytic_memory_bytes, model_flops
-from repro_torch.launch.mesh import H100, make_production_mesh
+from repro_torch.launch.mesh import H100, MeshLayout, make_production_mesh
 from repro_torch.launch.specs import batch_specs, build_cell, decode_cache
 from repro_torch.training.optimizer import OptimizerConfig
 from repro_torch.training.train_step import TrainConfig, make_train_step
@@ -86,7 +92,7 @@ TEMP_BASIS = ("peak of the live bytes above the arguments while one rank's step 
               "upper bound where `model` > 1){grads}; output_bytes: the donated arguments at their placed size "
               "(alias_bytes) and the other outputs as the step returns them, at the local batch")
 FLOPS_BASIS = ("(FlopCounterMode's aten count + the kernels' count from kernels/cost.py) of one microstep at the local "
-               "microbatch, x accum, / the `model` dim's size (the tensor-parallel split, assumed even){extra}")
+               "microbatch, x accum, / the `model` dim's size (the tensor-parallel split, assumed even)")
 
 
 def variant_rules(variant: str):
@@ -390,10 +396,6 @@ def analyze(recipe, cfg, cell, mesh, flags: PerfConfig) -> dict:
     coll = collectives(recipe, cfg, cell, mesh, flags)
     terms = {"compute_s": flops / H100["peak_flops_bf16"], "memory_s": mem_bytes / H100["hbm_bw"],
              "collective_s": sum(c["seconds"] for c in coll)}
-    extra = ""
-    if recipe.kind == "train" and cfg.family in ("ssm", "hybrid"):
-        extra = ("; the SSD / RG-LRU kernels have no backward on the card yet (ROADMAP Queue A 21), so their "
-                 "gradient is not counted")
     return {
         "memory": {
             "argument_bytes": arg_bytes,
@@ -411,7 +413,7 @@ def analyze(recipe, cfg, cell, mesh, flags: PerfConfig) -> dict:
             "analytic_bytes_per_device": mem_bytes,
             "model_flops_global": mflops,
             "useful_flops_ratio": mflops / max(flops * n_chips, 1.0),
-            "flops_basis": FLOPS_BASIS.format(extra=extra),
+            "flops_basis": FLOPS_BASIS,
         },
         "collectives": {
             "wire_nvlink": sum(c["count"] * c["bytes_per_rank"] for c in coll if c["link"] == "nvlink"),
@@ -426,11 +428,12 @@ def analyze(recipe, cfg, cell, mesh, flags: PerfConfig) -> dict:
 
 def run_cell(arch: str, shape: str, multi_pod: bool = False, rules=None, variant: str = "baseline",
              mesh=None, cell: ShapeCell | None = None, train_cfg: TrainConfig | None = None,
-             quiet: bool = False) -> dict:
+             quiet: bool = False, n_layers: int | None = None) -> dict:
     """One cell's record. ``mesh`` (a ``MeshLayout``) replaces the production
     layout, ``cell`` the shape cell named ``shape``, and ``train_cfg`` the
-    auto-accumulating AdamW default, where given."""
-    cfg = get_config(arch)
+    auto-accumulating AdamW default, where given; ``n_layers`` cuts the
+    depth (an encoder's too)."""
+    cfg = get_config(arch) if n_layers is None else cut(arch, n_layers)
     cell = cell or SHAPES[shape]
     mesh = mesh or make_production_mesh(multi_pod=multi_pod)
     mesh_name = mesh_label(mesh)
@@ -480,25 +483,35 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="artifacts/dryrun")
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--variant", default="baseline", choices=list(VARIANTS))
+    ap.add_argument("--layers", type=int, default=None, help="cut every arch to this many layers")
+    ap.add_argument("--one-rank-step", type=int, nargs=3, metavar=("BATCH", "SEQ", "ACCUM"), default=None,
+                    help="one rank's AdamW train step (remat) at BATCH x SEQ in ACCUM microbatches, in place of "
+                         "the shape cells and production layouts")
     args = ap.parse_args(argv)
 
     os.makedirs(args.out, exist_ok=True)
     archs = ARCH_IDS if (args.all or not args.arch) else [args.arch]
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
+    one_rank = {}
+    if args.one_rank_step:
+        b, t, a = args.one_rank_step
+        shapes, meshes = [f"step{b}x{t}a{a}"], [False]
+        one_rank = dict(mesh=MeshLayout((1, 1), ("data", "model")), cell=ShapeCell(shapes[0], t, b, "train"),
+                        train_cfg=TrainConfig(opt=OptimizerConfig(), accum_steps=a, remat=True))
 
     failures, counts = [], Counter()
     for multi_pod in meshes:
         for arch in archs:
             for shape in shapes:
-                mesh_name = mesh_label(make_production_mesh(multi_pod=multi_pod))
+                mesh_name = mesh_label(one_rank.get("mesh") or make_production_mesh(multi_pod=multi_pod))
                 suffix = "" if args.variant == "baseline" else f"__{args.variant}"
                 path = os.path.join(args.out, f"{arch}__{shape}__{mesh_name}{suffix}.json")
                 if args.skip_existing and os.path.exists(path):
                     print(f"[{arch} × {shape} × {mesh_name}] cached", flush=True)
                     continue
                 try:
-                    rec = run_cell(arch, shape, multi_pod, variant=args.variant)
+                    rec = run_cell(arch, shape, multi_pod, variant=args.variant, n_layers=args.layers, **one_rank)
                 except Exception as e:
                     traceback.print_exc()
                     rec = {"arch": arch, "shape": shape, "mesh": mesh_name, "status": "error",

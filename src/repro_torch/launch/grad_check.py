@@ -5,20 +5,28 @@ in the bf16 flash kernel read there.
     PYTHONPATH=src python -m repro_torch.launch.grad_check --mutants  # and each planted fault's
     PYTHONPATH=src python -m repro_torch.launch.grad_check --arch granite-moe-1b-a400m
     PYTHONPATH=src python -m repro_torch.launch.grad_check --arch whisper-small
+    PYTHONPATH=src python -m repro_torch.launch.grad_check --arch mamba2-1.3b
+    PYTHONPATH=src python -m repro_torch.launch.grad_check --arch recurrentgemma-9b --layers 3
 
-``--arch`` (qwen3-4b by default; a dense, MoE or audio config) at full width
-cut to 2 layers (whisper: 2 encoder and 2 decoder layers), fp32 masters,
-compute in the given dtype, one TokenPipeline batch (B 2, T 512; whisper's
-with its 1500 frame embeddings). The card runs the flash kernel's forward
-and ``ops.Attention``'s backward (remat; whisper's encoder and
-cross-attention non-causal, cross-attention at T 512 against S 1500), and
-for a MoE config the MoE FFN in torch ops with the router's gradient through
-the gates and the aux loss; the CPU runs the jnp-body port of attention
-under autograd. Both take one set of weights,
+``--arch`` (qwen3-4b by default; any config that trains) at full width cut
+to ``--layers`` (2 by default; whisper: that many encoder and decoder
+layers; recurrentgemma-9b at 3 is one R, R, A group), fp32 masters, compute
+in the given dtype, one TokenPipeline batch (B 2, T 512; whisper's with its
+1500 frame embeddings). The card runs the flash kernel's forward and
+``ops.Attention``'s backward (remat; whisper's encoder and cross-attention
+non-causal, cross-attention at T 512 against S 1500), the SSD kernels'
+forward and ``ops.SSDScan``'s backward (mamba2), the RG-LRU kernel's forward
+and ``ops.RGLRU``'s backward (recurrentgemma), and for a MoE config the MoE
+FFN in torch ops with the router's gradient through the gates and the aux
+loss; the CPU runs the jnp-body ports under autograd (the SSD's chunked
+body, the RG-LRU's sequential plain version). Both take one set of weights,
 drawn on the card and copied to the CPU. A reading is the loss |Δ| and, per
 leaf, the max|Δ| of the gradient over that leaf's max|g| on the CPU.
 ``chip_smoke.py`` phase 6a gates both at ``GRAD_RTOL`` of the compute dtype,
-with every leaf's gradient nonzero on both sides.
+with every leaf's gradient nonzero on both sides; for mamba2 and
+recurrentgemma it gates fp32 and records bf16 (ROADMAP Queue C 11: the CPU
+side of bf16 SSD rounds its intermediates to bf16, where the kernels keep
+fp32).
 
 ``--mutants`` builds copies of ``csrc/flash_attention.cu`` with one fault
 planted in the bf16 tensor-core kernel each (text substitutions, under
@@ -34,13 +42,12 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import dataclasses
 import subprocess
 
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import cut
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as paged_module
@@ -55,7 +62,14 @@ from repro_torch.training.trainer import extra_fields
 # subtlest planted fault (--mutants, softmax scale 1% high) 1.1e-2
 GRAD_RTOL = {"float32": 1e-3, "bfloat16": 1e-2}
 FLASH_BF16_TOL = (2e-2, 1e-2)  # tests/test_kernels.py::_tol, with rtol 1e-2
-TRAIN_SHAPE = (2, 512, 32, 8, 128)  # the training path's flash call: B, T, H, K, hd (causal)
+# one microbatch (B 2 of the global 4, T 512) of chip_smoke.py phase 6b's
+# steps at the calls of the kernels: flash (B, T, H, K, hd, window; causal)
+# for qwen3-4b and for recurrentgemma-9b's local attention, mamba2-1.3b's SSD
+# (b, t, h, p, n, chunk) and recurrentgemma-9b's RG-LRU (B, T, W)
+TRAIN_SHAPE = (2, 512, 32, 8, 128, None)
+HD256_TRAIN_SHAPE = (2, 512, 16, 1, 256, 2048)
+SSD_TRAIN_SHAPE = (2, 512, 64, 64, 128, 256)
+RGLRU_TRAIN_SHAPE = (2, 512, 4096)
 # whisper-small's non-causal flash calls, (T, S) at H = K = 12, hd 64: the
 # encoder's, and cross-attention of a 128-token prompt; 1500 = 23·64 + 28
 WHISPER_SHAPES = ((1500, 1500), (128, 1500))
@@ -84,12 +98,6 @@ PAGED_MUTANTS = {  # name: (old, new), substituted once in csrc/paged_decode.cu 
     "wrong page (page id + 1, clamped)": ("sPid[i] = min(max(page_table[b * a.pt_sb + first_page + i], 0), a.P - 1);",
                                           "sPid[i] = min(max(page_table[b * a.pt_sb + first_page + i] + 1, 0), a.P - 1);"),
 }
-
-
-def cut(arch: str, n_layers: int, **overrides):
-    """``arch`` at full width cut to ``n_layers`` (an encoder too)."""
-    cfg = get_config(arch)
-    return dataclasses.replace(cfg, n_layers=n_layers, enc_layers=min(cfg.enc_layers, n_layers), **overrides)
 
 
 def shift_mean(hd: int) -> float:
@@ -176,10 +184,11 @@ def passes(reading: dict, dtype: str) -> bool:
     return not reading["zero"] and reading["loss_abs_err"] <= tol and reading["worst_rel_err"] <= tol
 
 
-def run(dtype: str, arch: str = "qwen3-4b") -> dict:
-    """One reading of ``arch``, card against CPU, with the flash library as built."""
+def run(dtype: str, arch: str = "qwen3-4b", n_layers: int = 2) -> dict:
+    """One reading of ``arch`` at ``n_layers``, card against CPU, with the
+    kernel libraries as built."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, gpu, cpu = models(dtype, arch)
+    cfg, gpu, cpu = models(dtype, arch, n_layers)
     data = batch(cfg)
     return compare(gradients(gpu, data), gradients(cpu, data))
 
@@ -249,6 +258,7 @@ def mutants() -> list[dict]:
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--layers", type=int, default=2)
     ap.add_argument("--mutants", action="store_true", help="also read each planted flash fault (qwen3-4b)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -257,8 +267,9 @@ def main(argv: list[str] | None = None) -> None:
                          capture_output=True, text=True).stdout.strip()
     print(f"[{smi}]")
     for dtype in ("float32", "bfloat16"):
-        r = run(dtype, args.arch)
-        print(f"{args.arch} {dtype}: {r} tol {GRAD_RTOL[dtype]:.0e} {'ok' if passes(r, dtype) else 'FAIL'}", flush=True)
+        r = run(dtype, args.arch, args.layers)
+        print(f"{args.arch} {args.layers} layers {dtype}: {r} tol {GRAD_RTOL[dtype]:.0e} "
+              f"{'ok' if passes(r, dtype) else 'FAIL'}", flush=True)
     if args.mutants:
         mutants()
 

@@ -3,32 +3,36 @@ train step of a model at full width, after a warm-up step.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train --arch qwen3-4b \
         --batch 4 --seq 512 --accum 2
+    PYTHONPATH=src python -m repro_torch.launch.profile_train --arch mamba2-1.3b
+    PYTHONPATH=src python -m repro_torch.launch.profile_train --arch recurrentgemma-9b --layers 9
 
-fp32 masters, ``cfg.dtype`` compute, AdamW, remat, random weights from seed
+fp32 masters, ``cfg.dtype`` compute, AdamW, remat, the training entry's
+allocator (``launch/train.py::train_allocator``), random weights from seed
 0 and TokenPipeline batches. Prints the step's wall time (timed once without
 the profiler, then run again under it), the device's busy time (the sum of
 its kernel and copy times: one stream, so they do not overlap) and busy
 share, the device time by kernel group (as ``profile_serve``) and by part
 of the step: the kernels launched inside the optimizer update, the gradient
-clip, the attention backward (``ops.Attention``'s torch ops) and the loss's
-forward (the recompute in the backward is outside it). The last line is the
+clip, the attention, SSD and RG-LRU backwards (the torch ops of
+``ops.Attention``, ``ops.SSDScan`` and ``ops.RGLRU``) and the loss's forward
+(the recompute in the backward is outside it). The last line is the
 same as one JSON object. Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import get_config
+from repro_torch.configs import cut, get_config
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.launch.profile_serve import annotated, device_time
+from repro_torch.launch.train import train_allocator
 from repro_torch.models import build_model
 from repro_torch.training import train_step as train_step_module
 from repro_torch.training.optimizer import OptimizerConfig
@@ -38,6 +42,8 @@ PARTS = {  # part of the step: (module, function) whose launches it covers
     "optimizer update": (train_step_module, "opt_update"),
     "gradient clip": (train_step_module, "clip_by_global_norm"),
     "attention backward": (ops, "attention_backward"),
+    "SSD backward": (ops, "ssd_backward"),
+    "RG-LRU backward": (ops, "rglru_backward"),
 }
 
 
@@ -51,9 +57,13 @@ def main(argv: list[str] | None = None) -> dict:
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
-    cfg = get_config(args.arch)
-    if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    with train_allocator(dev):  # as launch/train.py trains
+        return profile_step(args, dev)
+
+
+def profile_step(args, dev: torch.device) -> dict:
+    """The module's reading for the parsed ``args``, on ``dev``."""
+    cfg = cut(args.arch, args.layers) if args.layers else get_config(args.arch)
     model = build_model(cfg, dev)
     opt = OptimizerConfig(warmup_steps=2, total_steps=100)
     state = init_state(model, torch.Generator(device=dev).manual_seed(0), opt)

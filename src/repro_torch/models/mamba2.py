@@ -55,10 +55,12 @@ def _dims(cfg):
 
 def ssd_chunked(x, dA, B, C, chunk: int):
     """x (b,t,h,p); dA (b,t,h) log-decay (≤0); B,C (b,t,g,n).
-    Returns (y (b,t,h,p), final_state (b,h,p,n)): in x's dtype on the CPU,
-    as the reference; fp32 from the CUDA kernels."""
+    Returns (y (b,t,h,p) in x's dtype, final_state (b,h,p,n)): the state in
+    x's dtype on the CPU, as the reference; fp32 from the CUDA kernels,
+    through :class:`ops.SSDScan` (the kernels' forward, their gradient in
+    torch ops)."""
     if kernel_path(x):
-        return ops.ssd_scan(x, dA, B, C, chunk)
+        return ops.SSDScan.apply(x, dA, B, C, chunk)
     b, t, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     hpg = h // g
@@ -133,8 +135,8 @@ class Mamba2LM(nn.Module):
     :meth:`init` draws them, or ``load_state_dict`` loads a converted tree.
     Computation runs in ``cfg.dtype``. The layers run in a Python loop over
     per-layer views of the stacked tensors. Parameters do not require grad
-    until ``requires_grad_()`` is called; on CUDA the SSD kernels have no
-    backward, so the model trains on the CPU only."""
+    until ``requires_grad_()`` is called; on CUDA the SSD kernels' gradient
+    is :class:`ops.SSDScan`'s backward."""
 
     def __init__(self, cfg, device=None, param_dtype: torch.dtype = torch.float32):
         super().__init__()

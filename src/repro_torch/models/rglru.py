@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.device import kernel_path, resolve_device
 from repro_torch.dist import Axes
 from repro_torch.dist.perf import under_current_flags
 from repro_torch.kernels import ops
@@ -72,7 +72,10 @@ CACHE_DTYPE = torch.bfloat16  # conv tails and ring K/V are bf16 whatever the co
 
 def rglru_scan(x, r, i, lam, h0=None):
     """x, r, i (B,T,W); lam (W,). Returns (y (B,T,W) in x's dtype, h_last
-    (B,W) fp32)."""
+    (B,W) fp32). On the card's path through :class:`ops.RGLRU` (the
+    kernel's forward, its gradient in torch ops)."""
+    if kernel_path(x):
+        return ops.RGLRU.apply(x, r, i, lam, h0)
     return ops.rglru(x, r, i, lam, h0)
 
 
@@ -146,8 +149,8 @@ class GriffinLM(nn.Module):
     :meth:`init` draws them, or ``load_state_dict`` loads a converted tree.
     Computation runs in ``cfg.dtype``. The layers run in a Python loop, group
     by group, then the remainder. Parameters do not require grad until
-    ``requires_grad_()`` is called; on CUDA the RG-LRU kernel has no
-    backward, so the model trains on the CPU only."""
+    ``requires_grad_()`` is called; on CUDA the RG-LRU kernel's gradient is
+    :class:`ops.RGLRU`'s backward."""
 
     def __init__(self, cfg, device=None, param_dtype: torch.dtype = torch.float32):
         super().__init__()

@@ -340,6 +340,74 @@ def test_meta_train_step_counts_accum_microsteps(arch):
     assert rec["collectives"]["per_op"] == [] and rec["roofline"]["collective_s"] == 0
 
 
+def _backward_flops(fn, inputs, needs_grad) -> int:
+    """FlopCounterMode's count of ``fn``'s backward on meta ``inputs`` (the
+    forward runs outside the counter), the cotangent on its first output
+    only, as a train step's loss gives it."""
+    leaves = [t.requires_grad_() if need else t for t, need in zip(inputs, needs_grad)]
+    out = fn(*leaves)
+    fc = dryrun.FlopCounterMode(display=False)
+    with fc:
+        torch.autograd.grad(out[0], [t for t in leaves if t.requires_grad], torch.empty_like(out[0]))
+    return fc.get_total_flops()
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_meta_train_step_counts_the_ssm_and_hybrid_backward(arch, monkeypatch):
+    """A reduced ``ssm`` and ``hybrid`` train cell counts the SSD / RG-LRU
+    gradient. Against the same step with ``ops.ssd_backward`` /
+    ``ops.rglru_backward`` giving zeros uncounted, its FLOPs rise by exactly
+    accum × (layers of the kind) × FlopCounterMode's count of
+    ``ops.SSDScan`` / ``ops.RGLRU``'s backward on meta tensors of the cell's
+    shapes (the RG-LRU's is elementwise, which FlopCounterMode counts as 0).
+    Against the bare entry points (the kernels without a gradient, as before
+    the Functions) they rise by that and, in the hybrid, by the backward of
+    the matmuls that feed the RG-LRU and got no gradient then (``w_in``:
+    4·b·T·d·W; ``w_a``, ``w_x``: 8·b·T·W²). The kernels' forward calls
+    (forward and remat recompute) are the same in all three, and the record
+    says nothing of a missing gradient."""
+    cfg = get_config(arch).reduced()
+    cell = ShapeCell("t", 64, 4, "train")
+    mesh = MeshLayout((1, 1), ("data", "model"))
+    tc = TrainConfig(opt=OptimizerConfig(), accum_steps=2, remat=True)
+    b, T, d = cell.global_batch // tc.accum_steps, cell.seq_len, cfg.d_model
+
+    def flops():
+        rec = dryrun.analyze(specs.build_cell(cfg, cell, mesh, tc), cfg, cell, mesh, dryrun.VARIANTS["baseline"])
+        assert rec["cost"]["kernel_calls_microstep"] == kernels
+        assert "backward" not in rec["cost"]["flops_basis"] and "Queue A" not in rec["cost"]["flops_basis"]
+        return rec["cost"]["flops_per_device"]
+
+    m = lambda *s, dt=getattr(torch, cfg.dtype): torch.empty(s, dtype=dt, device="meta")  # noqa: E731
+    if cfg.family == "ssm":
+        nh, n, chunk = cfg.ssm_expand * d // cfg.ssm_head_dim, cfg.ssm_state, min(cfg.ssm_chunk, T)
+        per_call = _backward_flops(lambda *a: ops.SSDScan.apply(*a, chunk),
+                                   (m(b, T, nh, cfg.ssm_head_dim), m(b, T, nh, dt=torch.float32), m(b, T, 1, n),
+                                    m(b, T, 1, n)), (True,) * 4)
+        calls, fn, helper, n_in, upstream = cfg.n_layers, "SSDScan", "ssd_backward", 4, 0
+        kernels = {"ssd_states": 2 * calls, "ssd_output": 2 * calls}
+        assert per_call > 0
+    else:
+        W = cfg.rnn_width or d
+        per_call = _backward_flops(lambda *a: ops.RGLRU.apply(*a, None),
+                                   (m(b, T, W), m(b, T, W), m(b, T, W), m(W, dt=torch.float32)), (True,) * 4)
+        calls = (cfg.layer_pattern * cfg.n_layers)[: cfg.n_layers].count("R")
+        fn, helper, n_in, upstream = "RGLRU", "rglru_backward", 5, 4 * b * T * d * W + 8 * b * T * W * W
+        kernels = {"rglru_scan": 2 * calls, "flash_attention": 2 * (cfg.n_layers - calls)}
+        assert per_call == 0
+    full = flops()
+    with monkeypatch.context() as mp:
+        mp.setattr(ops, helper, lambda *a: tuple(None if t is None or not t.requires_grad else torch.zeros_like(t)
+                                                 for t in a[:n_in]))
+        stub = flops()
+    with monkeypatch.context() as mp:
+        bare = ops.ssd_scan if fn == "SSDScan" else ops.rglru
+        mp.setattr(ops, fn, type(fn, (), {"apply": staticmethod(bare)}))
+        old = flops()
+    assert full - stub == tc.accum_steps * calls * per_call
+    assert full - old == tc.accum_steps * calls * (per_call + upstream)
+
+
 def test_collective_links():
     pod = make_production_mesh()
     assert dryrun.link(pod, ("model",))[0] == dryrun.link(pod, ("data",))[0] == "ib"

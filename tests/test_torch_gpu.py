@@ -722,11 +722,104 @@ def test_kernels_without_a_gradient_raise_under_grad(cuda):
         ops.attention(q, q[:, :, :1].detach(), q[:, :, :1].detach())
     with torch.no_grad():  # serving: no autograd, no error
         ops.ssd_scan(x, dA, B_, C_, 32)
-    for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
-        model = build_model(get_config(arch).reduced(dtype="float32"), cuda).requires_grad_()
-        tokens = torch.randint(1, 200, (1, 40), device=cuda)
-        with pytest.raises(RuntimeError, match="no backward"):
-            model.loss({"tokens": tokens, "labels": tokens})
+    with pytest.raises(RuntimeError, match="ops.SSDScan"):
+        ops.ssd_scan(x, dA, B_, C_, 32)
+    with pytest.raises(RuntimeError, match="ops.RGLRU"):
+        ops.rglru(xr, r, i, lam)
+
+
+# (b, t, h, p, n, chunk): ragged t at chunk 64, and one microbatch of
+# chip_smoke.py phase 6b's mamba2-1.3b step
+SSD_GRAD_CASES = [(1, 100, 4, 32, 64, 64), grad_check.SSD_TRAIN_SHAPE]
+# (B, T, W): ragged W and T, and one microbatch of phase 6b's recurrentgemma-9b
+RGLRU_GRAD_CASES = [(2, 100, 130), grad_check.RGLRU_TRAIN_SHAPE]
+
+
+def _function_grads(fn, host_inputs, host_weights, dev):
+    """``fn``'s outputs and the gradients of Σ out·weight into every input,
+    on ``dev``."""
+    leaves = [t.to(dev).requires_grad_() for t in host_inputs]
+    outs = fn(*leaves)
+    assert all(o.grad_fn is not None for o in outs)
+    sum((o.float() * w.to(dev)).sum() for o, w in zip(outs, host_weights)).backward()
+    return [o.detach() for o in outs] + [t.grad for t in leaves]
+
+
+SSM_CARD_CASES = [("ssd", c, dt) for c in SSD_GRAD_CASES for dt in DTYPES] + \
+    [("rglru", c, dt) for c in RGLRU_GRAD_CASES for dt in DTYPES] + \
+    [("model", arch, "float32") for arch in ("mamba2-1.3b", "recurrentgemma-9b")] + \
+    [pytest.param("rglru uniform gates", grad_check.RGLRU_TRAIN_SHAPE, "float32", marks=pytest.mark.xfail(
+        strict=True, reason="ROADMAP Queue C 18: with r uniform in [0, 1], 1 - a^2 cancels near r = 0 and dr "
+                            "differs card vs CPU past 2e-5 of its max, until it is written as -expm1(2 log a)"))]
+
+
+def _model_grads_on_card_match_cpu(cuda, arch):
+    cfg = get_config(arch).reduced(dtype="float32")
+    gpu = build_model(cfg, cuda).init(torch.Generator(device=cuda).manual_seed(0)).requires_grad_()
+    cpu = build_model(cfg, "cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    cpu.requires_grad_()
+    tokens = torch.from_numpy(np.random.default_rng(14).integers(1, cfg.vocab, size=(2, 41)))
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    for fn in (ssd_states, ssd_output, rglru_scan, flash_attention):
+        fn.launches = 0
+    losses = [m.loss({k: v.to(m.device) for k, v in batch.items()})[0] for m in (gpu, cpu)]
+    for loss in losses:
+        loss.backward()
+    _close(losses[1].detach(), losses[0].detach(), "float32")
+    for (name, pg), pc in zip(gpu.named_parameters(), cpu.parameters()):
+        assert pc.grad.abs().sum() > 0 and pg.grad.abs().sum() > 0, name
+        _close(pc.grad, pg.grad, "float32")
+    kinds = (cfg.layer_pattern * cfg.n_layers)[: cfg.n_layers] if cfg.family == "hybrid" else "S" * cfg.n_layers
+    assert (ssd_states.launches, ssd_output.launches, rglru_scan.launches, flash_attention.launches) == \
+        tuple(2 * kinds.count(k) for k in "SSRA")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,case,dtype", SSM_CARD_CASES)
+def test_ssm_functions_on_card_match_cpu(cuda, kind, case, dtype):
+    """ops.SSDScan and ops.RGLRU on the card (the kernels' forward, the
+    gradient in torch ops) against the CPU (the plain forwards, the same
+    backward), random weights on both outputs: the outputs and every
+    input's gradient, fp32 within 2e-5 of each tensor's max|·| (as
+    tests/test_torch_ssm_grad.py reads them against jax.grad: values run to
+    ~10³, and an element that sums terms of that size to ~10⁻⁴ keeps their
+    rounding), bf16 at 2e-2 + 1e-2 relative per element. The RG-LRU's gates
+    r and i are sigmoids of N(0, 1) draws, as the model's are; the case
+    "rglru uniform gates" draws r and i uniform in [0, 1] and is expected to
+    fail: near r = 0 the recurrence's 1 − a² = 1 − exp(2·log a) cancels
+    (relative rounding 2⁻²⁴ / (1 − a²), 2% at r = 1e-7) in the kernel, the
+    reference and the backward alike, and ∂/∂r there reads exp's last bit
+    on each device (ROADMAP Queue C 18). Then reduced mamba2 and recurrentgemma (fp32,
+    remat) through them on the card against the CPU's jnp-body ports: the
+    loss and every parameter's gradient, each nonzero, at 2e-5 + 1e-2
+    relative; every kernel of the model ran in the forward and in the
+    recompute."""
+    if kind == "model":
+        return _model_grads_on_card_match_cpu(cuda, case)
+    rng = np.random.default_rng(13)
+    if kind == "ssd":
+        b, t, h, p, n, chunk = case
+        host = list(_ssd_inputs(rng, b, t, h, p, n, dtype, "cpu"))
+        fn = lambda *a: ops.SSDScan.apply(*a, chunk)  # noqa: E731
+        weights = [_randn(rng, (b, t, h, p), "float32", "cpu"), _randn(rng, (b, h, p, n), "float32", "cpu")]
+    else:
+        B, T, W = case
+        x, r, i, lam = _rglru_inputs(rng, B, T, W, dtype, "cpu")
+        if kind == "rglru":
+            r, i = (torch.sigmoid(_randn(rng, (B, T, W), "float32", "cpu")).to(DTYPES[dtype]) for _ in range(2))
+        host = [x, r, i, lam, _randn(rng, (B, W), "float32", "cpu")]
+        fn = ops.RGLRU.apply
+        weights = [_randn(rng, (B, T, W), "float32", "cpu"), _randn(rng, (B, W), "float32", "cpu")]
+    got = _function_grads(fn, host, weights, cuda)
+    want = _function_grads(fn, host, weights, torch.device("cpu"))
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        if dtype == "float32":
+            err, scale = (g.cpu() - w).abs().max().item(), w.abs().max().item()
+            assert err <= _tol(dtype) * scale, (k, err, scale)
+        else:
+            _close(w, g, dtype)
 
 
 @pytest.mark.gpu
