@@ -64,8 +64,9 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    greedy tokens equal to the run without a mesh, each explicit path's calls
    counted; ``compressed_psum`` over a qwen3-4b layer's gradient shapes,
    card through NCCL bit-equal to the CPU through gloo; a 1-layer qwen3-4b
-   train state saved into an in-memory stand-in for a KVStore and restored
-   onto the mesh with ``load_distributed``, every leaf equal;
+   train state saved into the port's BVLSM engine on disk
+   (``BVCheckpointStore(path)``) and restored onto the mesh with
+   ``load_distributed``, every leaf equal;
 5. serving: ``repro_torch.launch.serve`` at full width and depth in bf16:
    qwen3-4b (8 requests, prompt 128, 32 new tokens, max batch 4), then
    mamba2-1.3b (8 requests, prompt 1024, max_len 1280), then
@@ -115,16 +116,20 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    meta and card exactly equal; argument + temp bytes over (b)'s peak and
    ``train_mfu`` recorded; (c) in a child process with deterministic algorithms,
    ``launch/train.py``'s trainer at full width and 1 layer, checkpointing
-   into an in-memory stand-in for a KVStore: 4 steps straight against 2,
-   then a new trainer that resumes from the store for 2 more, every leaf
-   of the state bit-equal;
-7. a ``kernels:`` summary line (launches and max|Δ| per kernel), the JSON
+   into the port's BVLSM engine (``repro_torch.core``) in a fresh directory
+   of the checkout (``build/ckpt``): 4 steps straight against 2, then a new
+   trainer that re-opens the directory (recovery from WAL and MANIFEST) and
+   resumes for 2 more, every leaf of the state bit-equal and the engine's
+   scrub (``verify_integrity``) clean; it prints the directory's filesystem
+   (from /proc/mounts) and free bytes, the bytes of state saved, save and
+   stall seconds, and the engine's bytes by kind and write amplification;
+7. the whole run's seconds, a ``kernels:`` summary line (launches and
+   max|Δ| per kernel), the JSON
    line ``{"kernels": [...]}`` with every measured number, then the result
    line.
 """
 from __future__ import annotations
 
-import bisect
 import contextlib
 import dataclasses
 import json
@@ -1080,11 +1085,11 @@ def phase_mesh(smi: str) -> None:
         if differ:
             raise AssertionError(f"compressed_psum: card and CPU differ at {differ}")
         # the elastic restore: a 1-layer qwen3-4b train state saved into the
-        # in-memory stand-in for a KVStore, loaded onto the NCCL mesh
+        # port's engine on disk, loaded onto the NCCL mesh
         cfg, opt = cut("qwen3-4b", 1), OptimizerConfig()
         model = build_model(cfg, "cuda")
         state = init_state(model, torch.Generator(device="cuda").manual_seed(2), opt)
-        store = BVCheckpointStore(MemoryKV())
+        store = BVCheckpointStore(str(fresh_dir("mesh")))
         store.save(1, state)
         t1 = time.perf_counter()
         loaded, meta = store.load_distributed(mesh, state, state_axes(model, opt, state))
@@ -1093,9 +1098,12 @@ def phase_mesh(smi: str) -> None:
         differ = [p for p, t in saved if not (rdist.is_dtensor(got[p]) and got[p].device.type == "cuda"
                                               and torch.equal(got[p].full_tensor().cpu(), t.detach().cpu()))]
         print(f"[mesh] load_distributed: a qwen3-4b train state at full width, 1 layer ({len(saved)} leaves, "
-              f"{store.db.stats()['bytes']} B in the in-memory store), saved at step {meta['step']} and placed on "
+              f"{store.stats()['user_bytes']} B into the engine at {store.db.path}), saved at step {meta['step']} "
+              f"and placed on "
               f"the (1, 1) NCCL mesh by its state axes in {load_s:.3f} s: every leaf a CUDA DTensor equal to what "
               f"was saved: {not differ}")
+        store.close()
+        shutil.rmtree(store.db.path)
         if differ or set(got) != {p for p, _ in saved}:
             raise AssertionError(f"load_distributed: leaves differ from what was saved: {differ}")
         del model, state, loaded, store
@@ -1166,54 +1174,6 @@ def phase_serve() -> dict:
                                               ("recurrentgemma-9b", 2048, 2112),
                                               ("granite-moe-1b-a400m", 128, 256), ("qwen2-moe-a2.7b", 128, 256),
                                               ("whisper-small", 128, 256))}
-
-
-class MemoryKV:
-    """An in-memory stand-in for a ``KVStore`` (the port has no storage
-    engine, and the card's machine has none it may import): the sorted
-    ``put``/``get``/``multi_get``/``delete``/``delete_range``/``range``/
-    ``flush``/``stats``/``close`` surface that ``BVCheckpointStore`` uses,
-    with nothing durable. ``close`` keeps the data, so a new trainer can
-    resume from the same object as from a reopened store."""
-
-    def __init__(self):
-        self._data: dict[bytes, bytes] = {}
-        self._keys: list[bytes] = []
-
-    def put(self, key: bytes, value: bytes) -> None:
-        if key not in self._data:
-            bisect.insort(self._keys, key)
-        self._data[key] = bytes(value)
-
-    def get(self, key: bytes):
-        return self._data.get(key)
-
-    def multi_get(self, keys):
-        return [self._data.get(k) for k in keys]
-
-    def delete(self, key: bytes) -> None:
-        if self._data.pop(key, None) is not None:
-            self._keys.remove(key)
-
-    def delete_range(self, start: bytes, end: bytes) -> None:
-        lo, hi = bisect.bisect_left(self._keys, start), bisect.bisect_left(self._keys, end)
-        for k in self._keys[lo:hi]:
-            del self._data[k]
-        del self._keys[lo:hi]
-
-    def range(self, start: bytes, end: bytes | None = None):
-        lo = bisect.bisect_left(self._keys, start)
-        hi = len(self._keys) if end is None else bisect.bisect_left(self._keys, end)
-        return [(k, self._data[k]) for k in self._keys[lo:hi]]
-
-    def flush(self) -> None:
-        pass
-
-    def stats(self) -> dict:
-        return {"keys": len(self._keys), "bytes": sum(map(len, self._data.values()))}
-
-    def close(self) -> None:
-        pass
 
 
 def phase_grad_check(dtype: str, arch: str = "qwen3-4b", n_layers: int = 2, gated: bool = True) -> dict:
@@ -1372,48 +1332,102 @@ def phase_dryrun(smi: str, card: dict) -> None:
                              f"{meta['flops']} card {card['flops']} record {rec['cost']['flops_per_device']}")
 
 
+CKPT_ROOT = Path(__file__).resolve().parent / "build" / "ckpt"
+
+
+def fresh_dir(name: str) -> Path:
+    """An empty directory for an engine, under the checkout's ``build/``."""
+    path = CKPT_ROOT / name
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
+
+
+def filesystem(path: Path) -> dict:
+    """The mount that holds ``path`` (the longest mount point of
+    /proc/mounts above it): its device, filesystem type and free bytes."""
+    path = os.path.realpath(path)
+    best = ("", "?", "?")
+    with open("/proc/mounts") as f:
+        for line in f:
+            dev, mnt, fstype = line.split()[:3]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) and len(mnt) > len(best[0]):
+                best = (mnt, dev, fstype)
+    st = os.statvfs(path)
+    return {"mount": best[0], "device": best[1], "fstype": best[2], "free_bytes": st.f_bavail * st.f_frsize}
+
+
+ENGINE_KEYS = ("user_bytes", "wal_bytes", "bvalue_bytes", "flush_bytes", "compaction_bytes", "write_amp")
+
+
 def resume_check() -> int:
     """Phase 6c, in its own process (``chip_smoke.py --resume-check``, with
     CUBLAS_WORKSPACE_CONFIG set before cuBLAS starts): the trainer of
     ``launch/train.py`` on qwen3-4b at full width and 1 layer under
-    deterministic algorithms, checkpointing into a MemoryKV: 4 steps straight
-    against 2 steps, then a new trainer resuming from the store for 2 more.
-    Prints one JSON line; exits non-zero unless every leaf is bit-equal."""
+    deterministic algorithms, checkpointing into the port's engine on disk:
+    4 steps straight against 2, then a new trainer that re-opens the second
+    directory and resumes for 2 more. Prints one JSON line; exits non-zero
+    unless every leaf is bit-equal and the re-opened engine's scrub is
+    clean."""
     torch.use_deterministic_algorithms(True)
     cfg = cut("qwen3-4b", 1)
     t0 = time.perf_counter()
 
-    def trainer_run(store, steps):
-        tcfg = train.build(steps=steps, batch=2, seq=512, ckpt_interval=100)
-        trainer, res = train.run(cfg, tcfg, store)
-        out = {path: t.detach().cpu() for path, t in leaves_with_paths(trainer.state)}
-        stall = trainer.ckpt.stall_seconds
+    def trainer_run(path, steps, scrub=False):
+        tcfg = train.build(steps=steps, batch=2, seq=512, ckpt_dir=str(path), ckpt_interval=100)
+        trainer, res = train.run(cfg, tcfg)
+        out = {p: t.detach().cpu() for p, t in leaves_with_paths(trainer.state)}
+        stats = trainer.store.stats()
+        run = {"save_s": sum(sec for _, sec in trainer.ckpt.save_times), "stall_s": trainer.ckpt.stall_seconds,
+               "saves": trainer.ckpt.save_count, "steps_kept": trainer.store.steps(),
+               "restore_s": trainer.restore_seconds,
+               "engine": {k: stats[k] for k in ENGINE_KEYS}}
+        if scrub:
+            run["scrub"] = trainer.store.db.verify_integrity()
         trainer.close()
-        return res, out, stall
+        return res, out, run
 
-    full, full_state, _ = trainer_run(MemoryKV(), 4)
-    kv = MemoryKV()
-    half, _, stall = trainer_run(kv, 2)
-    resumed, resumed_state, _ = trainer_run(kv, 4)
+    full_dir, dir_ = fresh_dir("6c_straight"), fresh_dir("6c_resumed")
+    fs = filesystem(dir_)
+    full, full_state, full_run = trainer_run(full_dir, 4)
+    half, _, half_run = trainer_run(dir_, 2)
+    resumed, resumed_state, resumed_run = trainer_run(dir_, 4, scrub=True)
     differ = [p for p in full_state if not torch.equal(full_state[p], resumed_state[p])]
     losses = [m["loss"] for m in full["metrics"]]
+    scrub = resumed_run.pop("scrub")
+    state_bytes = sum(t.numel() * t.element_size() for t in full_state.values())
     out = {"resume_bit_equal": not differ and full_state.keys() == resumed_state.keys(), "differ": differ,
            "losses": losses, "resumed_losses": [m["loss"] for m in half["metrics"] + resumed["metrics"]],
            "resumed_steps": [m["step"] for m in resumed["metrics"]], "leaves": len(full_state),
-           "store": kv.stats(), "stall_s": stall, "seconds": time.perf_counter() - t0}
+           "state_bytes": state_bytes, "filesystem": fs,
+           "scrub": {k: scrub[k] for k in ("sst_files", "blocks_verified", "values_verified", "findings")},
+           "straight": full_run, "first_2": half_run,
+           "resumed_2": resumed_run, "seconds": time.perf_counter() - t0}
     print("RESUME " + json.dumps(out))
-    ok = out["resume_bit_equal"] and out["resumed_steps"] == [3, 4] and all(np.isfinite(losses))
+    for path in (full_dir, dir_):
+        shutil.rmtree(path)
+    ok = (out["resume_bit_equal"] and out["resumed_steps"] == [3, 4] and all(np.isfinite(losses))
+          and not scrub["findings"] and scrub["values_verified"] > 0)
     return 0 if ok else 1
 
 
-def phase_resume() -> dict:
+def phase_resume(smi: str) -> dict:
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--resume-check"], capture_output=True,
-                         text=True, env=env, timeout=600)
+                         text=True, env=env, timeout=900)
     line = next((ln for ln in res.stdout.splitlines() if ln.startswith("RESUME ")), None)
     out = json.loads(line[len("RESUME "):]) if line else {}
-    print(f"[6c resume] qwen3-4b full width, 1 layer, batch 2 x 512, deterministic algorithms, checkpoints in an "
-          f"in-memory stand-in for a KVStore: 4 steps straight vs 2 + a new trainer resuming for 2: {out}")
+    print(f"[6c resume] qwen3-4b full width, 1 layer, batch 2 x 512, deterministic algorithms, checkpoints in the "
+          f"port's BVLSM engine on disk: 4 steps straight vs 2 + a new trainer re-opening the directory for 2: "
+          f"{json.dumps(out)}")
+    if out:
+        fs, first = out["filesystem"], out["first_2"]
+        print(f"[6c resume] {fs['fstype']} ({fs['device']} on {fs['mount']}, {fs['free_bytes']} B free): "
+              f"{out['state_bytes']} B of state per save; the first trainer's save at step 2: "
+              f"{first['save_s']:.3f} s saving ({out['state_bytes'] / first['save_s'] / 1e9:.3f} GB/s), "
+              f"{first['stall_s']:.3f} s stalled, engine {first['engine']}; the resumed trainer read it back in "
+              f"{out['resumed_2']['restore_s']:.3f} s and saved step 4 in {out['resumed_2']['save_s']:.3f} s, "
+              f"engine {out['resumed_2']['engine']} [{smi}]")
     if res.returncode != 0 or not out.get("resume_bit_equal"):
         raise AssertionError(f"resume check failed (rc {res.returncode}): {res.stderr[-3000:]}")
     return out
@@ -1483,6 +1497,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on a card", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
     results = phase_kernels()
@@ -1512,7 +1527,7 @@ def main() -> int:
     by_path["mamba2-1.3b training"], _ = phase_train_full(smi, "mamba2-1.3b")
     by_path["recurrentgemma-9b training"], _ = phase_train_full(smi, "recurrentgemma-9b", n_layers=9)
     phase_dryrun(smi, train_numbers)
-    phase_resume()
+    phase_resume(smi)
     # a kernel's launches: those of the first path that runs it, whose shapes
     # its top-level times are taken at; every path's count beside them, and
     # the times at another path's shapes (head_dim 256, the MoE heads, the
@@ -1530,6 +1545,7 @@ def main() -> int:
             if key in entry:
                 entry[key] = {**entry[key], "launches": counts[path]}
         line["kernels"].append(entry)
+    print(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} s")
     print("kernels: " + json.dumps({e["name"]: {"launches": e["launches_by_path"], "max_abs_err": e["max_abs_err"]}
                                     for e in line["kernels"]}))
     print(json.dumps(line))

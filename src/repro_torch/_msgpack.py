@@ -1,19 +1,23 @@
-"""The subset of MessagePack that checkpoint META records use: nil, bool,
-int, float32/64, str, bin, array and map.
+"""The subset of MessagePack that the storage engine (MANIFEST edits, SST
+index and range-tombstone blocks) and checkpoint META records use: nil,
+bool, int, float32/64, str, bin, array and map.
 
 ``packb`` writes what ``msgpack.packb(obj, use_bin_type=True)`` writes for
 the same object (the smallest int encoding, Python floats as float64, str
-and bytes as str/bin families), so either package reads the other's META;
+and bytes as str/bin families), so either package reads the other's files;
 ``unpackb`` reads those bytes back as ``msgpack.unpackb(raw, raw=False)``
-does (arrays as lists). The port carries its own codec because the machine
-it trains on need not have ``msgpack``.
+does (arrays as lists). Both take the keyword the engine passes to
+``msgpack`` at its only setting. The port carries its own codec because the
+machine it trains on need not have ``msgpack``.
 """
 from __future__ import annotations
 
 import struct
 
 
-def packb(obj) -> bytes:
+def packb(obj, use_bin_type: bool = True) -> bytes:
+    if not use_bin_type:
+        raise ValueError("only use_bin_type=True (str and bin kept apart) is supported")
     out = bytearray()
     _pack(obj, out)
     return bytes(out)
@@ -89,7 +93,9 @@ def _pack_len(n: int, out: bytearray, fix, codes) -> None:
     raise OverflowError(f"length {n} does not fit in 32 bits")
 
 
-def unpackb(data: bytes):
+def unpackb(data: bytes, raw: bool = False):
+    if raw:
+        raise ValueError("only raw=False (str read as str) is supported")
     obj, end = _unpack(memoryview(data), 0)
     if end != len(data):
         raise ValueError(f"{len(data) - end} bytes after the MessagePack object")

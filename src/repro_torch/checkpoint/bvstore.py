@@ -12,16 +12,18 @@ iff its META record is durable, so a crash mid-save leaves only unreferenced
 chunks. Incremental saves point a tensor whose hash matches the previous
 save at the step that wrote its chunks (``reuse_step``).
 
-The port has no storage engine of its own: the store is injected, any
-object with the ``KVStore`` surface it uses (``put``/``get``/``range``/
-``delete``/``delete_range``/``flush``/``close``), such as the reference's
-``repro.core.DB`` or ``ShardedDB``. Keys, chunking, leaf paths
-(``jax.tree_util.keystr``) and META (MessagePack, written by
-:mod:`._msgpack`) are the reference's, so either package restores the
-other's checkpoints. Leaves are torch tensors or numpy arrays; bf16 crosses
-as its uint16 bits under the dtype name ``bfloat16``. :meth:`load_distributed`
-re-shards a loaded state onto a ``DeviceMesh``; :meth:`backup` asks the
-injected store for an online image of itself (``checkpoint``).
+By default the store opens the port's engine (:class:`repro_torch.core.DB`)
+at ``path`` with the reference's settings; ``db=`` injects any object with
+the ``KVStore`` surface it uses (``put``/``get``/``range``/``delete``/
+``delete_range``/``flush``/``close``), such as the reference's
+``repro.core.DB`` or ``ShardedDB`` in tests. Keys, chunking, leaf paths
+(``jax.tree_util.keystr``), META (MessagePack, written by
+:mod:`repro_torch._msgpack`) and the engine's files are the reference's, so
+either package restores the other's checkpoints. Leaves are torch tensors
+or numpy arrays; bf16 crosses as its uint16 bits under the dtype name
+``bfloat16``. :meth:`load_distributed` re-shards a loaded state onto a
+``DeviceMesh``; :meth:`backup` asks the store's engine for an online image
+of itself (``checkpoint``).
 """
 from __future__ import annotations
 
@@ -31,8 +33,9 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import _msgpack
+from repro_torch.core import DB, DBConfig
 from repro_torch.tree import leaves_with_paths, tree_map, tree_map_with_path
-from . import _msgpack
 
 CHUNK = 4 << 20  # 4 MiB value chunks
 
@@ -54,10 +57,25 @@ def _host_bytes(leaf) -> tuple[np.ndarray, str]:
 
 
 class BVCheckpointStore:
-    def __init__(self, db):
-        """``db``: the injected ``KVStore``. The store takes ownership:
-        :meth:`close` closes it."""
-        self.db = db
+    def __init__(self, path: str | None = None, num_queues: int = 4, sync_values: bool = False, env=None,
+                 db=None):
+        """``db`` injects any ``KVStore`` (a ``DB`` or a ``ShardedDB``): the
+        store takes ownership (:meth:`close` closes it), and ``path``,
+        ``num_queues``, ``sync_values`` and ``env`` are ignored. Default: a
+        single engine at ``path`` with the reference's config: a synchronous
+        WAL for META, values of 4 KiB and more to ``num_queues`` BValue
+        queues, ``sync_values`` as ``DBConfig.sync_flush_io``, and ``env``
+        the filesystem (fault-injection tests)."""
+        if db is not None:
+            self.db = db
+            return
+        if path is None:
+            raise ValueError("BVCheckpointStore needs a path or an injected db")
+        cfg = DBConfig.bvlsm(wal_mode="sync", value_threshold=4096, num_bvalue_queues=num_queues,
+                             memtable_size=4 << 20, bvcache_bytes=16 << 20)
+        cfg.sync_flush_io = sync_values
+        cfg.env = env
+        self.db = DB.open(path, cfg)
 
     def _value_barrier(self) -> None:
         """Every chunk durable before a META record commits: per-queue BValue
@@ -192,6 +210,9 @@ class BVCheckpointStore:
         else:
             self.db.checkpoint(directory, base=base)
         return directory
+
+    def stats(self) -> dict:
+        return self.db.stats()
 
     def close(self) -> None:
         self.db.close()

@@ -46,6 +46,7 @@ class CheckpointManager:
         self._lock = threading.Lock()
         self.save_count = 0
         self.stall_seconds = 0.0  # time the train loop was blocked
+        self.save_times: list[tuple[int, float]] = []  # (step, seconds in store.save) of each save
 
     def maybe_save(self, step: int, state, extra_meta: dict | None = None) -> bool:
         if step % self.interval != 0:
@@ -60,10 +61,12 @@ class CheckpointManager:
         snapshot_s = time.monotonic() - t0
 
         def _write():
+            t1 = time.monotonic()
             hashes = self.store.save(step, host_state, extra_meta, prev_hashes=self._prev_hashes)
             with self._lock:
                 self._prev_hashes = hashes
                 self.save_count += 1
+                self.save_times.append((step, time.monotonic() - t1))
             self._retire()
 
         if self.async_save:

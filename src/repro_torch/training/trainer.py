@@ -11,11 +11,16 @@
 * Async checkpoints: the loop pays only the host snapshot
   (``CheckpointManager.stall_seconds``).
 
-The store is injected (the port has no storage engine): any ``KVStore``,
-which :class:`~repro_torch.checkpoint.bvstore.BVCheckpointStore` wraps and
-owns. ``store=None`` trains with checkpoints off. The step is eager (the
-reference's ``jit`` with donation becomes in-place updates), on ``cuda``
-unless ``device`` names another.
+Checkpoints go, as the reference's, to a
+:class:`~repro_torch.checkpoint.bvstore.BVCheckpointStore` over the port's
+engine (:mod:`repro_torch.core`) at ``TrainerConfig.ckpt_dir``. Tests may
+inject a store instead (``store=``, any ``KVStore``, which the checkpoint
+store wraps and owns). With neither (``ckpt_dir=None``, the default) the
+trainer keeps no checkpoints; no entry point runs it so (the timed steps of
+``chip_smoke.py`` phase 6b and ``launch/profile_train.py`` call the train
+step without the trainer). The step is eager (the reference's ``jit`` with
+donation becomes in-place updates), on ``cuda`` unless ``device`` names
+another.
 """
 from __future__ import annotations
 
@@ -53,6 +58,7 @@ class TrainerConfig:
     steps: int = 100
     global_batch: int = 8
     seq_len: int = 128
+    ckpt_dir: str | None = None  # None: no checkpoints, unless a store is injected
     ckpt_interval: int = 50
     ckpt_async: bool = True
     keep_last: int = 2
@@ -68,7 +74,12 @@ class Trainer:
         self.tcfg = tcfg
         self.device = resolve_device(device)
         self.model = build_model(model_cfg, self.device)
-        self.store = BVCheckpointStore(store) if store is not None else None
+        if store is not None:
+            self.store = BVCheckpointStore(db=store)
+        elif tcfg.ckpt_dir is not None:
+            self.store = BVCheckpointStore(tcfg.ckpt_dir)
+        else:
+            self.store = None
         self.ckpt = (CheckpointManager(self.store, tcfg.ckpt_interval, tcfg.keep_last, tcfg.ckpt_async)
                      if self.store is not None else None)
         self.pipeline = TokenPipeline(model_cfg.vocab, tcfg.global_batch, tcfg.seq_len, seed=tcfg.seed,
@@ -79,6 +90,7 @@ class Trainer:
         self.straggler_cb = straggler_cb
         self._preempted = False
         self.metrics_log: list[dict] = []
+        self.restore_seconds: float | None = None  # reading the checkpoint resumed from
 
     # ------------------------------------------------------------------
     def _init_or_restore(self) -> int:
@@ -88,9 +100,11 @@ class Trainer:
             self.state = init_state(self.model, gen, self.tcfg.train.opt)
             return 0
         self.state = init_state(self.model, None, self.tcfg.train.opt)
+        t0 = time.monotonic()
         loaded, meta = self.store.load(latest, template=self.state)
         with torch.no_grad():
             tree_map(lambda t, src: t.copy_(src), self.state, loaded)
+        self.restore_seconds = time.monotonic() - t0
         self.pipeline.load_state_dict(meta["extra"]["pipeline"])
         return int(meta["step"])
 

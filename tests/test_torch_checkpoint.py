@@ -1,8 +1,10 @@
 """The port's BVLSM checkpoint store, manager and MessagePack codec over the
 reference's storage engine (``repro.core.DB`` and a 3-shard ``ShardedDB``,
-injected), checkpoints restored across the two packages, online backups, and
+injected) and over its own (``BVCheckpointStore(path)``), checkpoints
+restored across the two packages, on disk too, online backups, and
 the elastic restore onto a 4-rank gloo mesh against the reference's on 4 host
 devices."""
+import dataclasses
 import textwrap
 import threading
 
@@ -19,15 +21,17 @@ from repro.training.optimizer import OptimizerConfig as RefOptimizerConfig
 from repro.training.train_step import TrainConfig as RefTrainConfig
 from repro.training.trainer import Trainer as RefTrainer
 from repro.training.trainer import TrainerConfig as RefTrainerConfig
-from repro_torch.checkpoint import _msgpack
+from repro_torch import _msgpack
+from repro_torch import core as port_core
 from repro_torch.checkpoint.bvstore import BVCheckpointStore
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
-from repro_torch.convert import state_to_jax
+from repro_torch.convert import state_to_jax, tensor_to_numpy
+from repro_torch.models import build_model
 from repro_torch.training.optimizer import OptimizerConfig
-from repro_torch.training.train_step import TrainConfig
+from repro_torch.training.train_step import TrainConfig, init_state
 from repro_torch.training.trainer import Trainer, TrainerConfig
-from repro_torch.tree import leaves_with_paths
+from repro_torch.tree import leaves_with_paths, tree_map
 
 torch.set_num_threads(1)
 
@@ -104,7 +108,7 @@ def test_msgpack_codec_reads_float32():
 # ---------------------------------------------------------------------------
 
 def test_save_load_roundtrip_with_bf16(kv):
-    store = BVCheckpointStore(kv)
+    store = BVCheckpointStore(db=kv)
     st = _state()
     store.save(10, st, {"pipeline": {"step": 10, "seed": 0}})
     out, meta = store.load(template=st)
@@ -122,7 +126,7 @@ def test_save_load_roundtrip_with_bf16(kv):
 
 
 def test_latest_and_multiple_steps(kv):
-    store = BVCheckpointStore(kv)
+    store = BVCheckpointStore(db=kv)
     for s in (5, 10, 15):
         store.save(s, _state(s))
     assert store.steps() == [5, 10, 15] and store.latest_step() == 15
@@ -132,7 +136,7 @@ def test_latest_and_multiple_steps(kv):
 
 
 def test_incremental_reuse_and_retention(kv):
-    store = BVCheckpointStore(kv)
+    store = BVCheckpointStore(db=kv)
     mgr = CheckpointManager(store, interval_steps=1, keep_last=2, async_save=False)
     st = _state()
     for s in range(1, 6):
@@ -148,7 +152,7 @@ def test_incremental_reuse_and_retention(kv):
 
 
 def test_delete_step_uses_range_tombstone(kv):
-    store = BVCheckpointStore(kv)
+    store = BVCheckpointStore(db=kv)
     state = {"w": torch.arange(4096, dtype=torch.float32)}
     for step in (1, 2, 3):
         store.save(step, state)
@@ -161,13 +165,13 @@ def test_delete_step_uses_range_tombstone(kv):
 @pytest.mark.parametrize("kind", ["db", "sharded"])
 def test_crash_before_meta_leaves_no_checkpoint(tmp_path, kind):
     path = str(tmp_path / "ck")
-    store = BVCheckpointStore(_open(kind, path))
+    store = BVCheckpointStore(db=_open(kind, path))
     st = _state()
     store.save(1, st)
     # a crash mid-save of step 2: chunks written, no META
     store.db.put(store._chunk_key(2, "['params']['w1']", 0), (st["params"]["w1"] + 1).numpy().tobytes())
     store.db.close(crash=True)
-    store2 = BVCheckpointStore(_open(kind, path))
+    store2 = BVCheckpointStore(db=_open(kind, path))
     try:
         assert store2.latest_step() == 1
         out, _ = store2.load(template=st)
@@ -193,7 +197,7 @@ class _HeldStore:
 
 def test_async_snapshot_isolated_from_in_place_update(kv):
     held = _HeldStore(kv)
-    mgr = CheckpointManager(BVCheckpointStore(held), interval_steps=1, async_save=True)
+    mgr = CheckpointManager(BVCheckpointStore(db=held), interval_steps=1, async_save=True)
     st = _state()
     before = {p: t.clone() for p, t in leaves_with_paths(st)}
     mgr.save_now(1, st)
@@ -201,7 +205,7 @@ def test_async_snapshot_isolated_from_in_place_update(kv):
         t.add_(1)  # the optimizer's next in-place update
     held.release.set()
     mgr.wait()
-    out, _ = BVCheckpointStore(kv).load(1)
+    out, _ = BVCheckpointStore(db=kv).load(1)
     for path, t in before.items():
         assert torch.equal(out[path], t), path
 
@@ -268,6 +272,58 @@ def test_port_checkpoint_resumes_in_reference(tmp_path):
     _close_states(ref_state, port_state)
 
 
+def _fields(cfg) -> dict:
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_store_on_disk_restores_bit_equal_across_packages(tmp_path, writer):
+    """``BVCheckpointStore(path)`` of either package opens its own engine at
+    ``path``, the port's with every field of the reference's config; a
+    reduced qwen3-4b train state (fp32 parameters, AdamW moments, the int32
+    step) and a bf16 leaf, saved by one package, load bit-equal in the
+    other."""
+    import ml_dtypes
+
+    model = build_model(get_config("qwen3-4b").reduced(dtype="float32"), "cpu")
+    state = init_state(model, torch.Generator().manual_seed(0), OptimizerConfig())
+    state = {**state, "bf16": torch.randn(3, 40, generator=torch.Generator().manual_seed(1)).bfloat16()}
+    path = str(tmp_path / "ck")
+    extra = {"pipeline": {"seed": 0, "step": 3, "host": 0, "num_hosts": 1}}
+    if writer == "port":
+        store = BVCheckpointStore(path)
+        assert isinstance(store.db, port_core.DB)
+        port_cfg = _fields(store.db.cfg)
+        store.save(3, state, extra)
+        store.close()
+        ref = RefStore(path)
+        try:
+            assert _fields(ref.db.cfg) == port_cfg
+            got, meta = ref.load(3)
+        finally:
+            ref.close()
+        assert meta["extra"] == extra
+        for p, t in leaves_with_paths(state):
+            want = tensor_to_numpy(t)
+            assert got[p].dtype.itemsize == want.dtype.itemsize and got[p].shape == want.shape, p
+            np.testing.assert_array_equal(got[p].view(want.dtype), want, err_msg=p)
+    else:
+        tree = tree_map(tensor_to_numpy, state)
+        tree["bf16"] = tree["bf16"].view(ml_dtypes.bfloat16)
+        ref = RefStore(path)
+        ref.save(3, tree, extra)
+        ref_cfg = _fields(ref.db.cfg)
+        ref.close()
+        store = BVCheckpointStore(path)
+        try:
+            assert isinstance(store.db, port_core.DB) and _fields(store.db.cfg) == ref_cfg
+            out, meta = store.load(3, template=state)
+        finally:
+            store.close()
+        assert meta["extra"] == extra
+        _equal(state, out)
+
+
 # ---------------------------------------------------------------------------
 # online backup, and the elastic restore onto a mesh
 # ---------------------------------------------------------------------------
@@ -277,7 +333,7 @@ def test_backup_image_opens_as_a_store(tmp_path, kind):
     """``backup`` through the injected engine's ``checkpoint``: a store opened
     on the image reads back every checkpoint committed before it, bit for
     bit, and none written or deleted on the source after it."""
-    store = BVCheckpointStore(_open(kind, str(tmp_path / "store")))
+    store = BVCheckpointStore(db=_open(kind, str(tmp_path / "store")))
     for s in (10, 20):
         store.save(s, _state(s))
     assert store.backup(str(tmp_path / "bak")) == str(tmp_path / "bak")
@@ -285,7 +341,7 @@ def test_backup_image_opens_as_a_store(tmp_path, kind):
     store.delete_step(10)
     assert store.steps() == [20, 30]
     store.close()
-    bak = BVCheckpointStore(_open(kind, str(tmp_path / "bak")))
+    bak = BVCheckpointStore(db=_open(kind, str(tmp_path / "bak")))
     try:
         assert bak.steps() == [10, 20]
         for s in (10, 20):
@@ -299,14 +355,14 @@ def test_backup_image_opens_as_a_store(tmp_path, kind):
 def test_incremental_backup_links_from_its_base(tmp_path):
     """``base``: the second image is taken against the first (a single
     ``DB``'s incremental checkpoint) and holds both steps."""
-    store = BVCheckpointStore(_open("db", str(tmp_path / "store")))
+    store = BVCheckpointStore(db=_open("db", str(tmp_path / "store")))
     store.save(1, _state(1))
     store.backup(str(tmp_path / "b1"))
     store.save(2, _state(2))
     store.backup(str(tmp_path / "b2"), base=str(tmp_path / "b1"))
     store.close()
     for image, steps in (("b1", [1]), ("b2", [1, 2])):
-        bak = BVCheckpointStore(_open("db", str(tmp_path / image)))
+        bak = BVCheckpointStore(db=_open("db", str(tmp_path / image)))
         try:
             assert bak.steps() == steps
             for s in steps:
@@ -359,7 +415,7 @@ LOAD_PORT = textwrap.dedent("""
 
     cfg = DBConfig.bvlsm(value_threshold=256, memtable_size=256 << 10, num_bvalue_queues=2,
                          block_cache_bytes=1 << 20, bvcache_bytes=1 << 20)
-    store = BVCheckpointStore(DB.open(os.path.join(d, f"image{rank}"), cfg))
+    store = BVCheckpointStore(db=DB.open(os.path.join(d, f"image{rank}"), cfg))
     model = build_model(get_config("qwen3-4b").reduced(dtype="float32"), "meta")
     mesh = make_host_mesh((2, 2), ("data", "model"), "cpu")
     state, meta = store.load_distributed(mesh, param_tree(model), model.param_axes())
@@ -386,7 +442,7 @@ def test_load_distributed_matches_reference_on_4_ranks(tmp_path):
     from repro_torch.models import build_model
 
     model = build_model(get_config("qwen3-4b").reduced(dtype="float32"), "cpu").init(torch.Generator().manual_seed(0))
-    store = BVCheckpointStore(_open("db", str(tmp_path / "store")))
+    store = BVCheckpointStore(db=_open("db", str(tmp_path / "store")))
     store.save(7, param_tree(model))
     for image in ["ref_image"] + [f"image{r}" for r in range(4)]:
         store.backup(str(tmp_path / image))

@@ -26,6 +26,7 @@ from repro_torch.models import attention, build_model, moe, transformer
 from repro_torch.training import compression
 from repro_torch.training.optimizer import OptimizerConfig
 from repro_torch.training.train_step import TrainConfig, init_state, make_train_step
+from repro_torch.tree import leaves_with_paths
 
 torch.set_num_threads(1)
 
@@ -1036,3 +1037,35 @@ def test_cuda_route_counts_as_the_meta_route(cuda):
         assert (on_card.calls, on_card.flops, on_card.bytes) == (on_meta.calls, on_meta.flops, on_meta.bytes)
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         assert [(t.shape, t.dtype) for t in got] == [(t.shape, t.dtype) for t in want]
+
+
+@pytest.mark.gpu
+def test_checkpoint_store_on_disk_restores_card_tensors(cuda, tmp_path):
+    """A state of CUDA tensors (bf16 and fp32, one of them several 4 MiB
+    chunks long, and an int32 counter) saved through the port's
+    ``BVCheckpointStore(path)`` into its engine on disk, then read by a new
+    store on the same directory and copied back onto the card: every leaf
+    bit-equal, and the engine's scrub clean."""
+    from repro_torch.checkpoint.bvstore import BVCheckpointStore
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    state = {"params": {"w": torch.randn(1536, 2048, generator=g, device=cuda),
+                        "emb": torch.randn(3000, 256, generator=g, device=cuda).bfloat16()},
+             "opt": {"mu": torch.randn(77, 5, generator=g, device=cuda).bfloat16()},
+             "step": torch.tensor(9, dtype=torch.int32, device=cuda)}
+    store = BVCheckpointStore(str(tmp_path / "ck"))
+    store.save(9, state)
+    store.close()
+    store = BVCheckpointStore(str(tmp_path / "ck"))
+    try:
+        template = {"params": {k: torch.empty_like(v) for k, v in state["params"].items()},
+                    "opt": {"mu": torch.empty_like(state["opt"]["mu"])}, "step": torch.empty_like(state["step"])}
+        loaded, meta = store.load(template=template)
+        assert meta["step"] == 9 and store.db.verify_integrity()["findings"] == []
+    finally:
+        store.close()
+    for (path, want), (_, got) in zip(leaves_with_paths(state), leaves_with_paths(loaded)):
+        got = got.to(cuda)
+        assert got.dtype == want.dtype and got.shape == want.shape, path
+        assert torch.equal(got.view(torch.uint8) if got.dtype == torch.bfloat16 else got,
+                           want.view(torch.uint8) if want.dtype == torch.bfloat16 else want), path

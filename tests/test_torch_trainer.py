@@ -135,9 +135,35 @@ def test_launcher_run_takes_a_store_and_main_trains_without_one(tmp_path, capsys
     assert res["status"] == "done" and trainer.store.latest_step() == 3
     trainer.close()
     res = train_launch.main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu", "--steps", "2", "--batch", "2",
-                             "--seq", "16"])
+                             "--seq", "16", "--ckpt-dir", str(tmp_path / "m")])
     assert res["status"] == "done" and len(res["metrics"]) == 2
-    assert "checkpoints: off" in capsys.readouterr().out
+    assert "checkpoint engine stats:" in capsys.readouterr().out
+
+
+def _main(ckpt_dir, steps):
+    return train_launch.main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu", "--steps", str(steps),
+                              "--batch", "2", "--seq", "16", "--ckpt-dir", str(ckpt_dir), "--ckpt-interval", "1"])
+
+
+def test_launcher_main_checkpoints_into_ckpt_dir_and_resumes(tmp_path, capsys):
+    """``main`` opens the port's engine at ``--ckpt-dir``, saves every
+    ``--ckpt-interval`` steps and prints the engine's stats; a second run
+    with more steps resumes after the last saved step, and the reference's
+    store reads what it saved."""
+    from repro.checkpoint.bvstore import BVCheckpointStore as RefStore
+
+    assert _main(tmp_path / "ck", 2)["step"] == 2
+    out = capsys.readouterr().out
+    assert "checkpoints: 3 saved" in out and "steps kept [1, 2]" in out and "'write_amp': 1.0" in out
+    res = _main(tmp_path / "ck", 4)
+    assert [m["step"] for m in res["metrics"]] == [3, 4]
+    out = capsys.readouterr().out
+    assert "steps kept [3, 4]" in out and "resumed: read from" in out
+    ref = RefStore(str(tmp_path / "ck"))
+    try:
+        assert ref.steps() == [3, 4] and ref.load_meta(4)["extra"]["pipeline"]["step"] == 4
+    finally:
+        ref.close()
 
 
 def test_whisper_trains_a_step_with_frames_from_the_pipeline():
