@@ -123,6 +123,20 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    scrub (``verify_integrity``) clean; it prints the directory's filesystem
    (from /proc/mounts) and free bytes, the bytes of state saved, save and
    stall seconds, and the engine's bytes by kind and write amplification;
+   (d) in another child process, the rest of the storage engine: the port's
+   harnesses under build/ckpt (``repro_torch.testing.model_db`` on one engine
+   and on a 3-shard ``ShardedDB``, ``crash_harness`` and
+   ``failover_harness`` in sync and async WAL modes: no divergence or
+   violation), then (c)'s trainer for 2 steps checkpointing into a 4-shard
+   ``ShardedDB`` on the store's own config (``bvstore.store_config``) and a
+   new trainer restoring from the re-opened router, then into a primary
+   ``DB`` with a replica bootstrapped and attached, the primary crashed once
+   the replica caught up (lag 0), the replica promoted and a new trainer
+   restoring from it: every leaf bit-equal to a CPU copy taken at the save,
+   every scrub clean, every shard holding BValue bytes; it prints save,
+   stall, catch-up, promote and restore seconds, the router's engine
+   counters, the bytes and frames shipped and the value bytes mirrored, and
+   the bytes 6c and 6d wrote (a run should stay under 45 GiB of writes);
 7. the whole run's seconds, a ``kernels:`` summary line (launches and
    max|Δ| per kernel), the JSON
    line ``{"kernels": [...]}`` with every measured number, then the result
@@ -138,6 +152,7 @@ import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -158,7 +173,8 @@ from repro_torch.kernels.decode_attention import paged_decode_attention, paged_d
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import inter_chunk_scan, ssd_chunked_cuda, ssd_output, ssd_states  # noqa: E402
-from repro_torch.checkpoint.bvstore import BVCheckpointStore  # noqa: E402
+from repro_torch.checkpoint.bvstore import BVCheckpointStore, store_config  # noqa: E402
+from repro_torch.core import DB, InProcessTransport, ShardedDB, attach, bootstrap_replica  # noqa: E402
 from repro_torch.configs import ARCH_IDS, SHAPES, ShapeCell  # noqa: E402
 from repro_torch.launch import dryrun, grad_check, serve, specs, train  # noqa: E402
 from repro_torch.launch.mesh import H100, MeshLayout, make_host_mesh  # noqa: E402
@@ -166,6 +182,7 @@ from repro_torch.models import attention, build_model, moe, transformer  # noqa:
 from repro_torch.training import compression  # noqa: E402
 from repro_torch.training.optimizer import OptimizerConfig  # noqa: E402
 from repro_torch.training.train_step import TrainConfig, init_state, make_train_step, state_axes  # noqa: E402
+from repro_torch.training.trainer import Trainer  # noqa: E402
 from repro_torch.tree import leaves_with_paths  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
@@ -1360,6 +1377,14 @@ def filesystem(path: Path) -> dict:
 ENGINE_KEYS = ("user_bytes", "wal_bytes", "bvalue_bytes", "flush_bytes", "compaction_bytes", "write_amp")
 
 
+def bytes_written() -> int:
+    """The bytes this process has passed to write calls so far (``wchar`` of
+    /proc/self/io: files, deleted ones too, and its pipes). A run should
+    stay under 45 GiB of writes; phases 6c and 6d each report theirs."""
+    with open("/proc/self/io") as f:
+        return next(int(line.split()[1]) for line in f if line.startswith("wchar:"))
+
+
 def resume_check() -> int:
     """Phase 6c, in its own process (``chip_smoke.py --resume-check``, with
     CUBLAS_WORKSPACE_CONFIG set before cuBLAS starts): the trainer of
@@ -1403,9 +1428,10 @@ def resume_check() -> int:
            "scrub": {k: scrub[k] for k in ("sst_files", "blocks_verified", "values_verified", "findings")},
            "straight": full_run, "first_2": half_run,
            "resumed_2": resumed_run, "seconds": time.perf_counter() - t0}
-    print("RESUME " + json.dumps(out))
     for path in (full_dir, dir_):
         shutil.rmtree(path)
+    out["bytes_written"] = bytes_written()
+    print("RESUME " + json.dumps(out))
     ok = (out["resume_bit_equal"] and out["resumed_steps"] == [3, 4] and all(np.isfinite(losses))
           and not scrub["findings"] and scrub["values_verified"] > 0)
     return 0 if ok else 1
@@ -1430,6 +1456,216 @@ def phase_resume(smi: str) -> dict:
               f"engine {out['resumed_2']['engine']} [{smi}]")
     if res.returncode != 0 or not out.get("resume_bit_equal"):
         raise AssertionError(f"resume check failed (rc {res.returncode}): {res.stderr[-3000:]}")
+    return out
+
+
+# phase 6d's harness runs: about 55 s together on the card machine's 9p disk
+DIFF_EXAMPLES, CRASH_ITERS, FAILOVER_ITERS = 40, 40, 24
+
+
+class CountingTransport(InProcessTransport):
+    """The in-process transport, counting the frames it sends (the engine
+    counts groups and bytes shipped; a group longer than
+    ``repl_batch_bytes`` goes as several frames)."""
+
+    def __init__(self, env, stream):
+        super().__init__(env, stream)
+        self.frames = 0
+
+    def send(self, wire):
+        self.frames += 1
+        super().send(wire)
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def leaf_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+
+def bit_equal(saved: dict, state) -> list:
+    """The leaves of ``state`` whose bytes differ from ``saved``'s CPU copy."""
+    got = dict(leaves_with_paths(state))
+    if got.keys() != saved.keys():
+        return sorted(set(got) ^ set(saved))
+    return [p for p, t in saved.items() if got[p].dtype != t.dtype or not torch.equal(leaf_bits(got[p]), leaf_bits(t))]
+
+
+def restore(cfg, tcfg, db) -> tuple[Trainer, int]:
+    """A new trainer over ``db`` that reads the latest checkpoint into its
+    state (the restore half of ``Trainer.run``, without its final save: a
+    second 5.88 GB write would not fit the call's budget)."""
+    trainer = Trainer(cfg, tcfg, db)
+    return trainer, trainer._init_or_restore()
+
+
+def storage_check() -> int:
+    """Phase 6d, in its own process (``chip_smoke.py --storage-check``): (a) the
+    port's harnesses on the checkout's disk; (b) the trainer of
+    ``launch/train.py`` (qwen3-4b, full width, 1 layer) checkpointing into a
+    4-shard ``ShardedDB`` on the store's own engine config, and a new trainer
+    restoring from the re-opened router; (c) the same trainer checkpointing
+    into a primary ``DB`` with a replica attached, the primary crashed once
+    the replica caught up, the replica promoted and a new trainer restoring
+    from it. Prints one JSON line; exits non-zero unless the harnesses ran
+    clean and every leaf came back bit-equal with clean scrubs."""
+    from repro_torch.testing import crash_harness, failover_harness, model_db
+
+    t0 = time.perf_counter()
+    out, ok = {}, True
+    # (a) the harnesses make their directories with mkdtemp: under build/ckpt here
+    harness_dir = fresh_dir("6d_harness")
+    tempfile.tempdir = str(harness_dir)
+    out["filesystem"] = filesystem(harness_dir)
+    runs = {}
+    for shards in (0, 3):
+        rep = model_db.run_differential(examples=DIFF_EXAMPLES, seed=0, shards=shards)
+        runs[f"model_db shards {shards}"] = {"examples": rep["examples"], "divergences": len(rep["failures"]),
+                                             "seconds": rep["seconds"]}
+    rep = crash_harness.run_crash_loop(CRASH_ITERS, seed=0, wal_modes=("sync", "async"))
+    runs["crash_harness sync+async"] = {"iterations": rep["iterations"], "violations": len(rep["failures"]),
+                                        "crashed_mid_workload": rep["crashed_mid_workload"],
+                                        "seconds": rep["seconds"]}
+    rep = failover_harness.run_failover_loop(FAILOVER_ITERS, seed=0, wal_modes=("sync", "async"))
+    runs["failover_harness sync+async"] = {"iterations": rep["iterations"], "violations": len(rep["failures"]),
+                                           "scenarios": rep["scenarios"], "seconds": rep["seconds"]}
+    tempfile.tempdir = None
+    shutil.rmtree(harness_dir)
+    out["harnesses"] = runs
+    ok &= all(r.get("divergences", 0) == 0 and r.get("violations", 0) == 0 for r in runs.values())
+    out["harness_s"] = time.perf_counter() - t0
+
+    cfg = cut("qwen3-4b", 1)
+    tcfg = train.build(steps=2, batch=2, seq=512, ckpt_interval=100)
+
+    def saved_copy(trainer):
+        return {p: t.detach().cpu().clone() for p, t in leaves_with_paths(trainer.state)}
+
+    # (b) a 4-shard router
+    t1 = time.perf_counter()
+    sharded_dir = fresh_dir("6d_sharded")
+    trainer, res = train.run(cfg, tcfg, ShardedDB.open(str(sharded_dir), shards=4, config=store_config()))
+    saved = saved_copy(trainer)
+    state_bytes = sum(t.numel() * t.element_size() for t in saved.values())
+    stats = trainer.store.stats()
+    b = {"steps": [m["step"] for m in res["metrics"]], "losses": [m["loss"] for m in res["metrics"]],
+         "saves": trainer.ckpt.save_count, "save_s": sum(sec for _, sec in trainer.ckpt.save_times),
+         "stall_s": trainer.ckpt.stall_seconds, "state_bytes": state_bytes, "shards": stats["shards"],
+         "engine": {k: stats["aggregate"][k] for k in ENGINE_KEYS},
+         "bvalue_bytes_per_shard": [sh["bvalue_bytes"] for sh in stats["per_shard"]], "router": stats["router"]}
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    trainer, step = restore(cfg, tcfg, ShardedDB.open(str(sharded_dir), config=store_config()))
+    b["restored_step"], b["restore_s"] = step, trainer.restore_seconds
+    b["differ"] = bit_equal(saved, trainer.state)
+    scrub = trainer.store.db.verify_integrity()
+    b["scrub"] = {"sst_files": scrub["sst_files"], "values_verified": scrub["values_verified"],
+                  "values_per_shard": [r["values_verified"] for r in scrub["per_shard"]],
+                  "findings": scrub["findings"]}
+    trainer.close()
+    del trainer, saved
+    torch.cuda.empty_cache()
+    shutil.rmtree(sharded_dir)
+    b["seconds"] = time.perf_counter() - t1
+    out["sharded"] = b
+    ok &= (b["restored_step"] == 2 and not b["differ"] and not b["scrub"]["findings"] and b["saves"] == 1
+           and all(n > 0 for n in b["bvalue_bytes_per_shard"]) and all(n > 0 for n in b["scrub"]["values_per_shard"])
+           and all(np.isfinite(b["losses"])))
+
+    # (c) failover: a primary and a replica on the store's config, the replica on its own directory
+    t1 = time.perf_counter()
+    primary_dir, replica_dir = fresh_dir("6d_primary"), fresh_dir("6d_replica")
+    primary = DB.open(str(primary_dir), store_config())
+    replica = bootstrap_replica(primary, str(replica_dir), cfg=store_config())
+    mirrored_before = dir_bytes(replica_dir / "bvalue")
+    transport = CountingTransport(primary.env, f"repl://{replica_dir}")
+    link = attach(primary, replica, transport=transport)
+    trainer, res = train.run(cfg, tcfg, primary)
+    t_saved = time.perf_counter()
+    caught_up = link.wait_caught_up(timeout=600)
+    c = {"steps": [m["step"] for m in res["metrics"]], "save_s": sum(sec for _, sec in trainer.ckpt.save_times),
+         "stall_s": trainer.ckpt.stall_seconds, "caught_up": caught_up,
+         "catch_up_s": time.perf_counter() - t_saved}
+    saved = saved_copy(trainer)
+    pstats = primary.stats()
+    c["primary_engine"] = {k: pstats[k] for k in ENGINE_KEYS}
+    c["repl_bytes_shipped"], c["repl_batches_shipped"] = pstats["repl_bytes_shipped"], pstats["repl_batches_shipped"]
+    c["frames"] = transport.frames
+    # the machine of the primary dies: its close skips the memtable flush and the
+    # trainer's clean close, which follows, finds the engine closed already
+    primary.close(crash=True)
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    status = replica.replication_status()
+    c["status_before_promote"] = status
+    t2 = time.perf_counter()
+    replica.promote()
+    c["promote_s"] = time.perf_counter() - t2
+    rstats = replica.stats()
+    c["replica_counters"] = {k: rstats[k] for k in ("repl_batches_applied", "repl_catchups", "repl_crc_checks",
+                                                    "repl_frames_corrupt", "repl_frames_duplicate",
+                                                    "repl_value_fetch_misses", "repl_divergence_detected",
+                                                    "promotions")}
+    # the engine keeps no counter of the values a follower mirrors: its
+    # BValue files grow by them
+    c["mirrored_value_bytes"] = dir_bytes(replica_dir / "bvalue") - mirrored_before
+    c["role_after"] = replica.replication_status()["role"]
+    trainer, step = restore(cfg, tcfg, replica)
+    c["restored_step"], c["restore_s"] = step, trainer.restore_seconds
+    c["differ"] = bit_equal(saved, trainer.state)
+    scrub = replica.verify_integrity()
+    c["scrub"] = {k: scrub[k] for k in ("sst_files", "blocks_verified", "values_verified", "findings")}
+    trainer.close()
+    del trainer, saved
+    torch.cuda.empty_cache()
+    shutil.rmtree(primary_dir)
+    shutil.rmtree(replica_dir)
+    c["seconds"] = time.perf_counter() - t1
+    out["failover"] = c
+    ok &= (caught_up and status.get("lag") == 0 and not status.get("diverged") and c["restored_step"] == 2
+           and not c["differ"] and not c["scrub"]["findings"] and c["scrub"]["values_verified"] > 0
+           and c["role_after"] == "primary" and c["mirrored_value_bytes"] >= state_bytes)
+    out["seconds"] = time.perf_counter() - t0
+    out["bytes_written"] = bytes_written()
+    out["ok"] = bool(ok)
+    print("STORAGE " + json.dumps(out))
+    return 0 if ok else 1
+
+
+def phase_storage(smi: str, resume: dict) -> dict:
+    """Phase 6d in a child process (:func:`storage_check`); prints its
+    numbers and the bytes phases 6c and 6d wrote."""
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--storage-check"], capture_output=True,
+                         text=True, timeout=900)
+    line = next((ln for ln in res.stdout.splitlines() if ln.startswith("STORAGE ")), None)
+    out = json.loads(line[len("STORAGE "):]) if line else {}
+    print(f"[6d storage] the port's harnesses, then qwen3-4b full width, 1 layer, batch 2 x 512, 2 steps, "
+          f"checkpointed into a 4-shard ShardedDB and into a primary DB with a replica: {json.dumps(out)}")
+    if out.get("sharded") and out.get("failover"):
+        fs, b, c = out["filesystem"], out["sharded"], out["failover"]
+        print(f"[6d storage] (a) on {fs['fstype']} ({fs['device']} on {fs['mount']}): "
+              + "; ".join(f"{name} {json.dumps(r)}" for name, r in out["harnesses"].items())
+              + f"; {out['harness_s']:.1f} s")
+        print(f"[6d storage] (b) ShardedDB, 4 shards: {b['state_bytes']} B saved in {b['save_s']:.3f} s "
+              f"({b['state_bytes'] / b['save_s'] / 1e9:.3f} GB/s), {b['stall_s']:.3f} s stalled, restored in "
+              f"{b['restore_s']:.3f} s, {len(b['differ'])} leaves differ; engine {b['engine']}; BValue bytes "
+              f"per shard {b['bvalue_bytes_per_shard']}; scrub {b['scrub']} [{smi}]")
+        print(f"[6d storage] (c) failover: saved in {c['save_s']:.3f} s "
+              f"({b['state_bytes'] / c['save_s'] / 1e9:.3f} GB/s), replica caught up {c['catch_up_s']:.3f} s "
+              f"after the save returned, lag {c['status_before_promote'].get('lag')} before the promote, "
+              f"promoted in {c['promote_s']:.3f} s, restored in {c['restore_s']:.3f} s, {len(c['differ'])} "
+              f"leaves differ; shipped {c['repl_bytes_shipped']} B in {c['frames']} frames "
+              f"({c['repl_batches_shipped']} groups), mirrored {c['mirrored_value_bytes']} B of values; "
+              f"scrub {c['scrub']} [{smi}]")
+    total = resume.get("bytes_written", 0) + out.get("bytes_written", 0)
+    print(f"[6d storage] bytes written: 6c {resume.get('bytes_written')}, 6d {out.get('bytes_written')}, "
+          f"6c + 6d {total} ({total / 2**30:.2f} GiB of the call's 45); 6d in {out.get('seconds', 0):.1f} s")
+    if res.returncode != 0 or not out.get("ok"):
+        raise AssertionError(f"storage check failed (rc {res.returncode}): {res.stderr[-3000:]}")
     return out
 
 
@@ -1527,7 +1763,7 @@ def main() -> int:
     by_path["mamba2-1.3b training"], _ = phase_train_full(smi, "mamba2-1.3b")
     by_path["recurrentgemma-9b training"], _ = phase_train_full(smi, "recurrentgemma-9b", n_layers=9)
     phase_dryrun(smi, train_numbers)
-    phase_resume(smi)
+    phase_storage(smi, phase_resume(smi))
     # a kernel's launches: those of the first path that runs it, whose shapes
     # its top-level times are taken at; every path's count beside them, and
     # the times at another path's shapes (head_dim 256, the MoE heads, the
@@ -1555,5 +1791,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    modes = {"--resume-check": resume_check, "--mutants": mutants_main}
+    modes = {"--resume-check": resume_check, "--storage-check": storage_check, "--mutants": mutants_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in modes else main())

@@ -15,8 +15,9 @@ save at the step that wrote its chunks (``reuse_step``).
 By default the store opens the port's engine (:class:`repro_torch.core.DB`)
 at ``path`` with the reference's settings; ``db=`` injects any object with
 the ``KVStore`` surface it uses (``put``/``get``/``range``/``delete``/
-``delete_range``/``flush``/``close``), such as the reference's
-``repro.core.DB`` or ``ShardedDB`` in tests. Keys, chunking, leaf paths
+``delete_range``/``flush``/``close``), such as the port's
+``ShardedDB`` or a replicated ``DB``, or the reference's ``repro.core.DB``
+in tests. Keys, chunking, leaf paths
 (``jax.tree_util.keystr``), META (MessagePack, written by
 :mod:`repro_torch._msgpack`) and the engine's files are the reference's, so
 either package restores the other's checkpoints. Leaves are torch tensors
@@ -56,26 +57,32 @@ def _host_bytes(leaf) -> tuple[np.ndarray, str]:
     return arr.reshape(-1).view(np.uint8), name
 
 
+def store_config(num_queues: int = 4, sync_values: bool = False, env=None) -> DBConfig:
+    """The engine config the store opens at a path, as the reference's: a
+    synchronous WAL for META, values of 4 KiB and more to ``num_queues``
+    BValue queues, ``sync_values`` as ``DBConfig.sync_flush_io``, and ``env``
+    the filesystem (fault-injection tests). An engine made for injection
+    (a ``ShardedDB``, a replicated pair) takes the same config from here."""
+    cfg = DBConfig.bvlsm(wal_mode="sync", value_threshold=4096, num_bvalue_queues=num_queues,
+                         memtable_size=4 << 20, bvcache_bytes=16 << 20)
+    cfg.sync_flush_io = sync_values
+    cfg.env = env
+    return cfg
+
+
 class BVCheckpointStore:
     def __init__(self, path: str | None = None, num_queues: int = 4, sync_values: bool = False, env=None,
                  db=None):
         """``db`` injects any ``KVStore`` (a ``DB`` or a ``ShardedDB``): the
         store takes ownership (:meth:`close` closes it), and ``path``,
         ``num_queues``, ``sync_values`` and ``env`` are ignored. Default: a
-        single engine at ``path`` with the reference's config: a synchronous
-        WAL for META, values of 4 KiB and more to ``num_queues`` BValue
-        queues, ``sync_values`` as ``DBConfig.sync_flush_io``, and ``env``
-        the filesystem (fault-injection tests)."""
+        single engine at ``path`` with :func:`store_config`'s config."""
         if db is not None:
             self.db = db
             return
         if path is None:
             raise ValueError("BVCheckpointStore needs a path or an injected db")
-        cfg = DBConfig.bvlsm(wal_mode="sync", value_threshold=4096, num_bvalue_queues=num_queues,
-                             memtable_size=4 << 20, bvcache_bytes=16 << 20)
-        cfg.sync_flush_io = sync_values
-        cfg.env = env
-        self.db = DB.open(path, cfg)
+        self.db = DB.open(path, store_config(num_queues, sync_values, env))
 
     def _value_barrier(self) -> None:
         """Every chunk durable before a META record commits: per-queue BValue

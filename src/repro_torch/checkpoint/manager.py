@@ -55,8 +55,8 @@ class CheckpointManager:
         return True
 
     def save_now(self, step: int, state, extra_meta: dict | None = None) -> None:
+        self.wait()  # one in-flight checkpoint at a time; wait() counts its own stall
         t0 = time.monotonic()
-        self.wait()  # one in-flight checkpoint at a time
         host_state = tree_map(host_snapshot, state)
         snapshot_s = time.monotonic() - t0
 

@@ -4,9 +4,10 @@ key-value separation, multi-queue BValue store, and BVCache.
 The port's own copy of the reference engine (``src/repro/core``): the same
 behaviour, ``DBConfig`` fields and on-disk formats (WAL, BValue files,
 SSTables v1–v4, MANIFEST, checkpoints), so a directory written by either
-engine opens in the other. MessagePack goes through the port's codec
-(:mod:`repro_torch._msgpack`), since the machine with the card has no
-``msgpack``. ``ShardedDB`` and replication are not part of it yet.
+engine opens in the other, sharded stores (``ROUTER``, ``ROUTER_LOG``,
+``shard_*``) and replication frames included. MessagePack goes through
+the port's codec (:mod:`repro_torch._msgpack`), since the machine with
+the card has no ``msgpack``.
 
 ``DBConfig.separation_mode`` selects the three systems the paper compares:
 ``"none"`` (RocksDB baseline), ``"flush"`` (BlobDB/WiscKey), ``"wal"``
@@ -32,13 +33,31 @@ from .errors import (
     SnapshotUnstableError,
 )
 from .record import ValueOffset
+from .replication import (
+    InProcessTransport,
+    ReplicationLink,
+    attach,
+    bootstrap_replica,
+)
+from .sharded import (
+    HashPartitioner,
+    MergedCursor,
+    RangePartitioner,
+    ShardedDB,
+    ShardedSnapshot,
+)
 from .writebatch import WriteBatch
 
 __all__ = [
     "DB",
+    "ShardedDB",
     "KVStore",
     "Snapshot",
+    "ShardedSnapshot",
     "Cursor",
+    "MergedCursor",
+    "HashPartitioner",
+    "RangePartitioner",
     "DBConfig",
     "ValueOffset",
     "WriteBatch",
@@ -53,4 +72,8 @@ __all__ = [
     "CorruptionError",
     "SimulatedCrashError",
     "ReplicaDivergedError",
+    "ReplicationLink",
+    "InProcessTransport",
+    "attach",
+    "bootstrap_replica",
 ]

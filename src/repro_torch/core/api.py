@@ -1,8 +1,8 @@
 """KVStore — the one client-facing protocol every store implements.
 
-Both :class:`~repro_torch.core.db.DB` (one engine) and the reference's
-``repro.core.sharded.ShardedDB`` (N engines behind a router, not yet in
-the port) satisfy this surface, so everything above the engine — the checkpoint
+Both :class:`~repro_torch.core.db.DB` (one engine) and
+:class:`~repro_torch.core.sharded.ShardedDB` (N engines behind a router)
+satisfy this surface, so everything above the engine — the checkpoint
 store, the serving stack, benchmarks, the differential harness — is
 written against ``KVStore`` and runs unchanged on either. The protocol
 is ``runtime_checkable`` for the conformance test

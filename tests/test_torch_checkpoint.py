@@ -1,12 +1,13 @@
 """The port's BVLSM checkpoint store, manager and MessagePack codec over the
 reference's storage engine (``repro.core.DB`` and a 3-shard ``ShardedDB``,
-injected) and over its own (``BVCheckpointStore(path)``), checkpoints
+injected), over the port's 3-shard ``ShardedDB`` and over its own (``BVCheckpointStore(path)``), checkpoints
 restored across the two packages, on disk too, online backups, and
 the elastic restore onto a 4-rank gloo mesh against the reference's on 4 host
 devices."""
 import dataclasses
 import textwrap
 import threading
+import time
 
 import jax
 import msgpack
@@ -44,11 +45,22 @@ def _cfg() -> DBConfig:  # tests/test_api.py's
                           block_cache_bytes=1 << 20, bvcache_bytes=1 << 20)
 
 
+def _port_cfg() -> port_core.DBConfig:
+    return port_core.DBConfig.bvlsm(value_threshold=256, memtable_size=256 << 10, num_bvalue_queues=2,
+                                    block_cache_bytes=1 << 20, bvcache_bytes=1 << 20)
+
+
 def _open(kind, path):
-    return DB.open(path, _cfg()) if kind == "db" else ShardedDB.open(path, shards=3, config=_cfg())
+    """``db`` and ``sharded``: the reference's engine and router; ``port-sharded``:
+    the port's router, 3 shards of the port's engine."""
+    if kind == "db":
+        return DB.open(path, _cfg())
+    if kind == "sharded":
+        return ShardedDB.open(path, shards=3, config=_cfg())
+    return port_core.ShardedDB.open(path, shards=3, config=_port_cfg())
 
 
-@pytest.fixture(params=["db", "sharded"])
+@pytest.fixture(params=["db", "sharded", "port-sharded"])
 def kv(request, tmp_path):
     path = str(tmp_path / "store")
     s = _open(request.param, path)
@@ -162,7 +174,7 @@ def test_delete_step_uses_range_tombstone(kv):
         store.delete_step(99)
 
 
-@pytest.mark.parametrize("kind", ["db", "sharded"])
+@pytest.mark.parametrize("kind", ["db", "sharded", "port-sharded"])
 def test_crash_before_meta_leaves_no_checkpoint(tmp_path, kind):
     path = str(tmp_path / "ck")
     store = BVCheckpointStore(db=_open(kind, path))
@@ -208,6 +220,34 @@ def test_async_snapshot_isolated_from_in_place_update(kv):
     out, _ = BVCheckpointStore(db=kv).load(1)
     for path, t in before.items():
         assert torch.equal(out[path], t), path
+
+
+def test_stall_counts_a_wait_once(tmp_path):
+    """A save that waits on the one in flight: the loop is blocked for the
+    wait (counted by ``wait``) and the snapshot, once each, so
+    ``stall_seconds`` is at most the wall time of the two ``save_now`` calls;
+    a synchronous save counts its own time once."""
+    db = port_core.DB.open(str(tmp_path / "store"), _port_cfg())
+    held = _HeldStore(db)
+    mgr = CheckpointManager(BVCheckpointStore(db=held), interval_steps=1, async_save=True)
+    st = _state()
+    release = threading.Timer(0.4, held.release.set)
+    t0 = time.monotonic()
+    mgr.save_now(1, st)
+    release.start()
+    mgr.save_now(2, st)  # waits ~0.4 s for step 1's write
+    wall = time.monotonic() - t0
+    release.join()
+    assert 0.3 < mgr.stall_seconds <= wall
+    mgr.wait()
+    assert mgr.save_count == 2
+    sync = CheckpointManager(BVCheckpointStore(db=db), interval_steps=1, async_save=False)
+    t0 = time.monotonic()
+    sync.save_now(3, st)
+    sync.save_now(4, st)
+    wall = time.monotonic() - t0
+    assert sum(sec for _, sec in sync.save_times) <= sync.stall_seconds <= wall
+    db.close()
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +368,7 @@ def test_store_on_disk_restores_bit_equal_across_packages(tmp_path, writer):
 # online backup, and the elastic restore onto a mesh
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["db", "sharded"])
+@pytest.mark.parametrize("kind", ["db", "sharded", "port-sharded"])
 def test_backup_image_opens_as_a_store(tmp_path, kind):
     """``backup`` through the injected engine's ``checkpoint``: a store opened
     on the image reads back every checkpoint committed before it, bit for

@@ -4,7 +4,9 @@ the port's engine, the two engines in lockstep over one seeded op stream
 (every read equal, byte-identical directories, equal byte counters), each
 engine opening the other's directory after a clean close and after a
 simulated crash, and the port's MessagePack codec byte-equal to ``msgpack``
-on the engine's own MANIFEST edits and SST index and range-tombstone blocks."""
+on the engine's own MANIFEST edits, SST index and range-tombstone blocks,
+``ShardedDB``'s ``ROUTER`` and ``ROUTER_LOG`` records and replication
+frames."""
 import os
 
 import msgpack
@@ -17,6 +19,8 @@ import repro_torch.core as port_core
 from repro_torch import _msgpack
 from repro_torch.core import db as port_db
 from repro_torch.core import manifest as port_manifest
+from repro_torch.core import replication as port_replication
+from repro_torch.core import sharded as port_sharded
 from repro_torch.core import sstable as port_sstable
 
 CORES = {"ref": ref_core, "port": port_core}
@@ -248,19 +252,24 @@ class _Recorded:
         self.calls.append((self.site, "packb", obj, ours, msgpack.packb(obj, **kw)))
         return ours
 
-    def unpackb(self, raw, **kw):
-        ours = _msgpack.unpackb(raw, **kw)
-        self.calls.append((self.site, "unpackb", bytes(raw), ours, msgpack.unpackb(raw, **kw)))
+    def unpackb(self, data, **kw):  # the engine passes raw=False by keyword
+        ours = _msgpack.unpackb(data, **kw)
+        self.calls.append((self.site, "unpackb", bytes(data), ours, msgpack.unpackb(data, **kw)))
         return ours
 
 
 @pytest.fixture(scope="module")
 def codec_calls(tmp_path_factory):
     """Every MessagePack call of a port engine that flushes, range-deletes,
-    compacts, takes a checkpoint and reopens (MANIFEST replayed, SSTs read)."""
+    compacts, takes a checkpoint and reopens (MANIFEST replayed, SSTs read);
+    of a range-partitioned port ``ShardedDB`` that takes single- and
+    cross-shard batches and reopens (``ROUTER`` and ``ROUTER_LOG`` written
+    and read); and of a port primary shipping to a replica (frames packed
+    and read)."""
     calls = []
     mp = pytest.MonkeyPatch()
-    for site, mod in (("manifest", port_manifest), ("sstable", port_sstable), ("db", port_db)):
+    for site, mod in (("manifest", port_manifest), ("sstable", port_sstable), ("db", port_db),
+                      ("sharded", port_sharded), ("replication", port_replication)):
         mp.setattr(mod, "msgpack", _Recorded(site, calls))
     root = tmp_path_factory.mktemp("codec")
     rng = np.random.default_rng(3)
@@ -281,6 +290,28 @@ def codec_calls(tmp_path_factory):
             assert len(list(db.range())) > 0
         finally:
             db.close()
+    for _ in range(2):  # create, then reopen: the ROUTER read back, ROUTER_LOG replayed
+        sdb = port_core.ShardedDB.open(str(root / "sharded"), shards=3, config=_cfg(port_core),
+                                       partitioner="range", boundaries=[b"k0030", b"k0060"])
+        try:
+            for i in range(0, 90, 7):
+                sdb.write(port_core.WriteBatch().put(f"k{i:04d}".encode(), _value(rng, 2000))
+                          .put(f"k{(i + 31) % 90:04d}".encode(), _value(rng, 300)))
+                sdb.put(f"k{i + 1:04d}".encode(), b"single")
+            sdb.delete_range(b"k0010", b"k0070")
+            assert len(list(sdb.range())) > 0
+        finally:
+            sdb.close()
+    primary = port_core.DB.open(str(root / "primary"), _cfg(port_core))
+    replica = port_core.bootstrap_replica(primary, str(root / "replica"), cfg=_cfg(port_core))
+    try:
+        link = port_core.attach(primary, replica)
+        for i in range(40):
+            primary.put(f"r{i:04d}".encode(), _value(rng, SIZES[i % len(SIZES)]))
+        assert link.wait_caught_up(timeout=30)
+    finally:
+        primary.close()
+        replica.close()
     mp.undo()
     return calls
 
@@ -296,6 +327,12 @@ CODEC_SITES = {
     "sst index blocks": lambda c: c[0] == "sstable" and c[1] == "packb" and not _is_range_block(c[2]),
     "sst range-tombstone blocks": lambda c: c[0] == "sstable" and c[1] == "packb" and _is_range_block(c[2]),
     "sst blocks read": lambda c: c[0] == "sstable" and c[1] == "unpackb",
+    "ROUTER manifest written": lambda c: c[0] == "sharded" and c[1] == "packb" and "shards" in c[2],
+    "ROUTER manifest read": lambda c: c[0] == "sharded" and c[1] == "unpackb" and "shards" in c[3],
+    "ROUTER_LOG records written": lambda c: c[0] == "sharded" and c[1] == "packb" and "t" in c[2],
+    "ROUTER_LOG records read": lambda c: c[0] == "sharded" and c[1] == "unpackb" and "t" in c[3],
+    "replication frames shipped": lambda c: c[0] == "replication" and c[1] == "packb",
+    "replication frames read": lambda c: c[0] == "replication" and c[1] == "unpackb",
 }
 
 

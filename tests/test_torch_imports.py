@@ -43,6 +43,39 @@ def test_port_imports_neither_jax_nor_reference():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+# the storage engine and its harnesses run on the card's machine on their own
+STORAGE_MODULES = ["repro_torch.core", "repro_torch.configs.bvlsm_paper", "repro_torch.testing",
+                   "repro_torch.testing.model_db", "repro_torch.testing.crash_harness",
+                   "repro_torch.testing.failover_harness"]
+
+_STORAGE_PROBE = """
+import importlib, sys
+sys.path[:0] = [{src!r}]
+mod = importlib.import_module({module!r})
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
+print("imported:", bad)
+sys.exit(1 if bad or not mod.__name__.startswith("repro_torch") else 0)
+"""
+
+
+@pytest.mark.parametrize("module", STORAGE_MODULES)
+def test_storage_modules_load_neither_jax_reference_nor_msgpack(module):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = _STORAGE_PROBE.format(src=str(ROOT / "src"), module=module)
+    res = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True, env=env,
+                         cwd=str(ROOT), timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_port_core_exports_every_name_of_the_reference():
+    import repro.core as ref_core
+    import repro_torch.core as port_core
+
+    assert set(ref_core.__all__) <= set(port_core.__all__)
+    for name in ref_core.__all__:
+        assert getattr(port_core, name).__module__.startswith("repro_torch"), name
+
+
 def test_port_sources_name_neither_jax_nor_reference():
     for path in PKG.rglob("*.py"):
         for line in path.read_text().splitlines():
