@@ -66,7 +66,13 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    card through NCCL bit-equal to the CPU through gloo; a 1-layer qwen3-4b
    train state saved into the port's BVLSM engine on disk
    (``BVCheckpointStore(path)``) and restored onto the mesh with
-   ``load_distributed``, every leaf equal;
+   ``load_distributed``, every leaf equal; then, in a child process with
+   deterministic algorithms (``mesh_train_check``), ``Trainer(mesh=...)``
+   on qwen3-4b and granite-moe-1b-a400m (2 layers, 3 steps of 4 × 512)
+   against the trainer without a mesh, every leaf bit-equal but the tied
+   embedding and its moments (within ``MESH_TRAIN_RTOL``), the kernels'
+   launches and V9's and V2's calls counted, and granite-moe saved at step
+   2 and resumed by a fresh ``Trainer(mesh=...)`` to a step 3 bit-equal;
 5. serving: ``repro_torch.launch.serve`` at full width and depth in bf16:
    qwen3-4b (8 requests, prompt 128, 32 new tokens, max batch 4), then
    mamba2-1.3b (8 requests, prompt 1024, max_len 1280), then
@@ -110,7 +116,9 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    4.07 B parameters: ``rglru_scan`` 96, flash 48; its 38 layers need ~167
    GB of state);
    dryrun: ``repro_torch.launch.dryrun`` over every arch × shape on both
-   production layouts on the meta device (every cell ok or skip), and the
+   production layouts on the meta device (every cell ok or skip; in a child
+   process without the card, started after phase 3, that runs beside the
+   card phases with 6d's harnesses), and the
    qwen3-4b record at (b)'s shape on one rank held against (b): argument
    bytes within 1% of what ``init_state`` allocated, the FLOPs of one step
    meta and card exactly equal; argument + temp bytes over (b)'s peak and
@@ -123,11 +131,11 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    scrub (``verify_integrity``) clean; it prints the directory's filesystem
    (from /proc/mounts) and free bytes, the bytes of state saved, save and
    stall seconds, and the engine's bytes by kind and write amplification;
-   (d) in another child process, the rest of the storage engine: the port's
-   harnesses under build/ckpt (``repro_torch.testing.model_db`` on one engine
-   and on a 3-shard ``ShardedDB``, ``crash_harness`` and
-   ``failover_harness`` in sync and async WAL modes: no divergence or
-   violation), then (c)'s trainer for 2 steps checkpointing into a 4-shard
+   (d) the rest of the storage engine: the port's harnesses under build/ckpt
+   (``repro_torch.testing.model_db`` on one engine and on a 3-shard
+   ``ShardedDB``, ``crash_harness`` and ``failover_harness`` in sync and
+   async WAL modes: no divergence or violation; run by the dry run's child
+   process), then, in another child process, (c)'s trainer for 2 steps checkpointing into a 4-shard
    ``ShardedDB`` on the store's own config (``bvstore.store_config``) and a
    new trainer restoring from the re-opened router, then into a primary
    ``DB`` with a replica bootstrapped and attached, the primary crashed once
@@ -1129,6 +1137,184 @@ def phase_mesh(smi: str) -> None:
         dist.destroy_process_group()
 
 
+MESH_TRAIN_STEPS = 3
+# fp32, of a leaf's largest |value|: the bound on the leaves whose sums may
+# run in another order under the mesh (the tied embedding and its moments)
+# and on the metrics; a missing or wrong update exceeds it by orders
+MESH_TRAIN_RTOL = 1e-6
+
+
+def tied(name: str) -> bool:
+    """The tied embedding and its optimizer moments, or a step's metric."""
+    return name.endswith("['embed']") or name.startswith("step ")
+
+
+def state_bits(trainer) -> dict:
+    """A copy of every leaf of a trainer's state, gathered where placed."""
+    return {p: (x.full_tensor() if rdist.is_dtensor(x) else x.detach().clone()) for p, x in
+            leaves_with_paths(trainer.state)}
+
+
+def compare_runs(got: dict, want: dict) -> dict:
+    """Per-step loss and grad norm, and every leaf: whether the bits are
+    equal, else the largest |Δ|. ``within_tol``: every leaf bit-equal but
+    the tied embedding and its moments, and those and the metrics within
+    ``MESH_TRAIN_RTOL`` of their largest |value|."""
+    pairs = {f"step {a['step']} {k}": (torch.tensor(a[k]), torch.tensor(b[k]))
+             for a, b in zip(got["metrics"], want["metrics"]) for k in ("loss", "grad_norm")}
+    pairs.update({p: (got["state"][p].float(), want["state"][p].float()) for p in want["state"]})
+    differ = [name for name, (a, b) in pairs.items() if not torch.equal(a, b)]
+    diff = {name: (a - b).abs().max().item() for name, (a, b) in pairs.items()}
+    same_keys = got["state"].keys() == want["state"].keys() and len(got["metrics"]) == len(want["metrics"])
+    return {"bit_equal": not differ and same_keys, "differ": differ, "compared": len(pairs),
+            "max_abs_diff": max(diff.values()), "worst": max(diff, key=diff.get),
+            "within_tol": same_keys and all(tied(n) and diff[n] <= MESH_TRAIN_RTOL * pairs[n][1].abs().max().item()
+                                            for n in differ)}
+
+
+def mesh_train_check() -> int:
+    """Phase ``mesh``'s training legs, in their own process (``chip_smoke.py
+    --mesh-train-check``, with CUBLAS_WORKSPACE_CONFIG set before cuBLAS
+    starts, deterministic algorithms): a 1-rank NCCL group and a (1, 1) mesh,
+    every ``PerfConfig`` flag on. qwen3-4b and granite-moe-1b-a400m at full
+    width cut to 2 layers, fp32 masters, bf16 compute, AdamW, remat, 3 steps
+    of 4 × 512 in 2 microbatches: ``Trainer(mesh=...)`` against the same
+    trainer without a mesh from the same seed, the kernels' launches and the
+    explicit paths' calls of the mesh run counted; then, for
+    granite-moe-1b-a400m, a mesh run of 2 steps saving into the port's
+    engine on disk and a fresh ``Trainer(mesh=...)`` that restores it and
+    takes step 3. Prints one JSON line; exits non-zero on a failed check."""
+    import torch.distributed as dist
+
+    from repro_torch.training.trainer import TrainerConfig
+
+    t_start = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    dist.init_process_group("cuda:nccl,cpu:gloo", rank=0, world_size=1)
+    out, ok = {}, True
+    try:
+        mesh = make_host_mesh((1, 1), ("data", "model"), "cuda")
+        flags = PerfConfig(**{f.name: True for f in dataclasses.fields(PerfConfig)})
+        for arch in ("qwen3-4b", "granite-moe-1b-a400m"):
+            cfg = cut(arch, 2)
+
+            def run(steps, on_mesh, ckpt=None):
+                tcfg = TrainerConfig(steps=steps, global_batch=TRAIN_B, seq_len=TRAIN_T, ckpt_dir=ckpt,
+                                     ckpt_interval=100, ckpt_async=False, log_every=1000, train=TRAIN_CFG)
+                t0 = time.perf_counter()
+                with perf_context(flags):
+                    trainer = Trainer(cfg, tcfg, mesh=mesh if on_mesh else None)
+                    res = trainer.run()
+                torch.cuda.synchronize()
+                run = {"metrics": [{k: m[k] for k in ("step", "loss", "grad_norm")} for m in res["metrics"]],
+                       "state": state_bits(trainer), "seconds": time.perf_counter() - t0,
+                       "restore_s": trainer.restore_seconds}
+                if ckpt is not None:
+                    run["save_s"] = sum(sec for _, sec in trainer.ckpt.save_times)
+                    run["engine"] = trainer.store.stats()["user_bytes"]
+                trainer.close()
+                del trainer
+                torch.cuda.empty_cache()
+                return run
+
+            plain = run(MESH_TRAIN_STEPS, False)
+            for fn in WRAPPERS.values():
+                fn.launches = 0
+            for fn in EXPLICIT_PATHS.values():
+                fn.mesh_calls = 0
+            transformer.row_parallel_einsum.backward_calls = 0
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()  # the run without a mesh's state, kept to compare
+            meshed = run(MESH_TRAIN_STEPS, True)
+            L, A, steps = cfg.n_layers, TRAIN_CFG.accum_steps, MESH_TRAIN_STEPS
+            row_parallel = L * (1 if cfg.family == "moe" else 2)  # wo, and w_down outside the MoE FFN
+            calls = {"flash_attention": flash_attention.launches,
+                     **{k: fn.launches for k, fn in WRAPPERS.items() if k != "flash_attention"},
+                     "V9 forward": transformer.row_parallel_einsum.mesh_calls,
+                     "V9 backward": transformer.row_parallel_einsum.backward_calls,
+                     "V2": moe.moe_ffn_local.mesh_calls}
+            expect = {k: 0 for k in WRAPPERS}
+            expect.update({"flash_attention": L * 2 * A * steps, "V9 forward": row_parallel * 2 * A * steps,
+                           "V9 backward": row_parallel * A * steps,
+                           "V2": L * 2 * A * steps if cfg.family == "moe" else 0})
+            cmp = compare_runs(meshed, plain)
+            entry = {"layers": L, "calls": calls, "expect": calls == expect, "expected": expect, **cmp,
+                     "losses": [m["loss"] for m in meshed["metrics"]],
+                     "grad_norms": [m["grad_norm"] for m in meshed["metrics"]],
+                     "plain_losses": [m["loss"] for m in plain["metrics"]],
+                     "seconds": {"plain": plain["seconds"], "mesh": meshed["seconds"]},
+                     "peak_allocated": torch.cuda.max_memory_allocated() - held}
+            ok &= calls == expect and cmp["within_tol"]
+            if cfg.family == "moe":
+                path = fresh_dir("mesh_train")
+                del plain
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                first = run(MESH_TRAIN_STEPS - 1, True, str(path))
+                resumed = run(MESH_TRAIN_STEPS, True, str(path))
+                state_bytes = sum(t.numel() * t.element_size() for t in first["state"].values())
+                resume = compare_runs({"metrics": resumed["metrics"], "state": resumed["state"]},
+                                      {"metrics": meshed["metrics"][-1:], "state": meshed["state"]})
+                entry["resume"] = {**resume, "steps": [m["step"] for m in resumed["metrics"]],
+                                   "save_s": first["save_s"], "state_bytes": state_bytes,
+                                   "user_bytes": first["engine"], "restore_s": resumed["restore_s"],
+                                   "peak_allocated": torch.cuda.max_memory_allocated() - held}
+                ok &= resume["bit_equal"] and entry["resume"]["steps"] == [MESH_TRAIN_STEPS]
+                shutil.rmtree(path)
+            out[arch] = entry
+    finally:
+        dist.destroy_process_group()
+    out["bytes_written"], out["seconds"] = bytes_written(), time.perf_counter() - t_start
+    print("MESHTRAIN " + json.dumps(out))
+    return 0 if ok else 1
+
+
+def phase_mesh_train(smi: str) -> dict:
+    """Runs :func:`mesh_train_check` in a child process and prints its
+    readings; returns the mesh runs' kernel launches by path."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--mesh-train-check"], capture_output=True,
+                         text=True, env=env, timeout=900)
+    line = next((ln for ln in res.stdout.splitlines() if ln.startswith("MESHTRAIN ")), None)
+    out = json.loads(line[len("MESHTRAIN "):]) if line else {}
+    paths = {}
+    for arch in ("qwen3-4b", "granite-moe-1b-a400m"):
+        if arch not in out:
+            continue
+        e = out[arch]
+        print(f"[mesh train] {arch} full width, {e['layers']} layers, fp32 masters, bf16 compute, AdamW, remat, "
+              f"{MESH_TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_T} in {TRAIN_CFG.accum_steps} microbatches, every "
+              f"PerfConfig flag on, deterministic algorithms: Trainer(mesh=(1, 1) over NCCL) against the trainer "
+              f"without a mesh from the same seed: losses {e['losses']} (without: {e['plain_losses']}), grad norms "
+              f"{e['grad_norms']}, losses, grad norms and state after step {MESH_TRAIN_STEPS} "
+              f"{'bit-equal' if e['bit_equal'] else 'DIFFER'} (max|d| {e['max_abs_diff']:.3e} at {e['worst']}, "
+              f"{len(e['differ'])} of {e['compared']} metrics and leaves not bit-equal: {e['differ']}; "
+              f"bit-equal but the tied embedding, its moments and the metrics, those within {MESH_TRAIN_RTOL} "
+              f"of their largest |value|: {e['within_tol']}); launches and explicit-path calls "
+              f"{e['calls']} "
+              f"(expected {e['expected']}); {e['seconds']['mesh']:.1f} s under the mesh, "
+              f"{e['seconds']['plain']:.1f} s without, peak allocated by the mesh run {e['peak_allocated']} B "
+              f"[{smi}]")
+        paths[f"{arch} mesh training"] = {k: v for k, v in e["calls"].items() if k in WRAPPERS and v}
+        if "resume" in e:
+            r = e["resume"]
+            print(f"[mesh train] {arch}: saved at step {MESH_TRAIN_STEPS - 1} under the mesh into the port's engine "
+                  f"on disk ({r['state_bytes']} B of state, {r['user_bytes']} B into the engine) in {r['save_s']:.3f}"
+                  f" s ({r['state_bytes'] / r['save_s'] / 1e9:.3f} GB/s); a fresh Trainer(mesh=...) restored it in "
+                  f"{r['restore_s']:.3f} s and took step(s) {r['steps']}: "
+                  f"{'bit-equal' if r['bit_equal'] else 'DIFFER'} to the uninterrupted run's step "
+                  f"{MESH_TRAIN_STEPS} (max|d| {r['max_abs_diff']:.3e}); peak allocated by the two runs "
+                  f"{r['peak_allocated']} B "
+                  f"[{smi}]")
+    if out:
+        print(f"[mesh train] the child process: {out['seconds']:.1f} s, {out['bytes_written']} B written")
+    if res.returncode != 0 or set(paths) != {"qwen3-4b mesh training", "granite-moe-1b-a400m mesh training"}:
+        raise AssertionError(f"mesh train check failed (rc {res.returncode}): {res.stdout[-2000:]} "
+                             f"{res.stderr[-3000:]}")
+    return paths
+
+
 def layers_per_call(cfg) -> dict:
     """{kernel: (launches per prefill call, per decode call)}: one per layer
     of the kernel's kind; kernels not listed launch never."""
@@ -1287,12 +1473,13 @@ def phase_train_full(smi: str, arch: str = "qwen3-4b", n_layers: int | None = No
                  "kernel_calls": counted["kernel_calls"]})
 
 
-def phase_dryrun(smi: str, card: dict) -> None:
-    """Phase ``dryrun``: (1) ``repro_torch.launch.dryrun`` over every arch ×
-    shape on both production layouts (baseline variant), in this process on
-    the meta device (no JAX on this machine): every cell ``ok``, or ``skip``
-    with the config's own reason, none ``error``; the counts, the seconds and
-    the roofline table of pod16x16 printed. (2) The record of qwen3-4b at
+def phase_dryrun(smi: str, card: dict, checks: dict) -> None:
+    """Phase ``dryrun``: (1) the records of ``repro_torch.launch.dryrun`` over
+    every arch × shape on both production layouts (baseline variant), which
+    :func:`cpu_checks` wrote on the meta device (no JAX on this machine):
+    every cell ``ok``, or ``skip`` with the config's own reason, none
+    ``error``; the counts, the seconds and the roofline table of pod16x16
+    printed. (2) The record of qwen3-4b at
     phase 6b's shape (global batch 4 × 512, accumulation 2, remat, AdamW) on
     one rank, held against the card: the argument bytes within ``ARGS_RTOL``
     of what ``init_state`` allocated, gated; the FLOPs of one step, meta
@@ -1301,13 +1488,8 @@ def phase_dryrun(smi: str, card: dict) -> None:
     over its ms as a share of the bf16 peak (``train_mfu``), recorded."""
     import importlib.util
 
-    t0 = time.perf_counter()
-    out = _build.BUILD_DIR / "dryrun"
-    shutil.rmtree(out, ignore_errors=True)
-    with open(os.devnull, "w") as devnull, contextlib.redirect_stdout(devnull):
-        rc = dryrun.main(["--all", "--both-meshes", "--out", str(out)])
-    recs = [json.loads(f.read_text()) for f in sorted(out.glob("*.json"))]
-    seconds = time.perf_counter() - t0
+    rc, seconds = checks["dryrun"]["rc"], checks["dryrun"]["seconds"]
+    recs = [json.loads(f.read_text()) for f in sorted(DRYRUN_DIR.glob("*.json"))]
     counts = {st: sum(r["status"] == st for r in recs) for st in ("ok", "skip", "error")}
     wrong_skips = [(r["arch"], r["shape"]) for r in recs if r["status"] == "skip"
                    and r["reason"] != get_config(r["arch"]).shape_supported(SHAPES[r["shape"]])[1]]
@@ -1316,8 +1498,8 @@ def phase_dryrun(smi: str, card: dict) -> None:
     roofline = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(roofline)
     print(f"[dryrun] every arch x shape on pod16x16 and pod2x16x16 over meta tensors: {len(recs)} cells "
-          f"(expected {2 * len(ARCH_IDS) * len(SHAPES)}), {counts}, {seconds:.1f} s; roofline of pod16x16 "
-          f"(benchmarks/roofline.py):")
+          f"(expected {2 * len(ARCH_IDS) * len(SHAPES)}), {counts}, {seconds:.1f} s in the child process beside "
+          f"the card phases; roofline of pod16x16 (benchmarks/roofline.py):")
     print(roofline.render(recs, "pod16x16"))
     if rc != 0 or counts["error"] or wrong_skips or len(recs) != 2 * len(ARCH_IDS) * len(SHAPES):
         raise AssertionError(f"dry run: rc {rc}, {counts}, skips without the config's reason {wrong_skips}")
@@ -1459,8 +1641,79 @@ def phase_resume(smi: str) -> dict:
     return out
 
 
-# phase 6d's harness runs: about 55 s together on the card machine's 9p disk
+# phase 6d's harness runs: 54–75 s together on the card machine's 9p disk,
+# in the child process of :func:`cpu_checks`
 DIFF_EXAMPLES, CRASH_ITERS, FAILOVER_ITERS = 40, 40, 24
+DRYRUN_DIR = _build.BUILD_DIR / "dryrun"
+
+
+def cpu_checks() -> int:
+    """The work of phases dryrun and 6d that needs no card, in a child
+    process (``chip_smoke.py --cpu-checks``, no CUDA device visible) that
+    :func:`main` starts after phase 3 and joins before phase dryrun, so that
+    it runs beside the card phases: (1) ``repro_torch.launch.dryrun --all
+    --both-meshes`` on the meta device, its records written under
+    ``build/dryrun`` for phase dryrun to check; (2) the port's harnesses on
+    the checkout's disk under ``build/ckpt``: ``model_db`` on one engine and
+    on 3 shards, ``crash_harness`` and ``failover_harness`` in sync and
+    async WAL modes. Prints one JSON line; exits non-zero if the dry run
+    failed or a harness found a divergence or a violation."""
+    from repro_torch.testing import crash_harness, failover_harness, model_db
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    out = {}
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    with open(os.devnull, "w") as devnull, contextlib.redirect_stdout(devnull):
+        rc = dryrun.main(["--all", "--both-meshes", "--out", str(DRYRUN_DIR)])
+    out["dryrun"] = {"rc": rc, "seconds": time.perf_counter() - t0}
+
+    t1 = time.perf_counter()
+    harness_dir = fresh_dir("6d_harness")  # the harnesses make their directories with mkdtemp
+    tempfile.tempdir = str(harness_dir)
+    out["filesystem"] = filesystem(harness_dir)
+    runs = {}
+    for shards in (0, 3):
+        rep = model_db.run_differential(examples=DIFF_EXAMPLES, seed=0, shards=shards)
+        runs[f"model_db shards {shards}"] = {"examples": rep["examples"], "divergences": len(rep["failures"]),
+                                             "seconds": rep["seconds"]}
+    rep = crash_harness.run_crash_loop(CRASH_ITERS, seed=0, wal_modes=("sync", "async"))
+    runs["crash_harness sync+async"] = {"iterations": rep["iterations"], "violations": len(rep["failures"]),
+                                        "crashed_mid_workload": rep["crashed_mid_workload"],
+                                        "seconds": rep["seconds"]}
+    rep = failover_harness.run_failover_loop(FAILOVER_ITERS, seed=0, wal_modes=("sync", "async"))
+    runs["failover_harness sync+async"] = {"iterations": rep["iterations"], "violations": len(rep["failures"]),
+                                           "failures": [str(f)[:400] for f in rep["failures"]],
+                                           "scenarios": rep["scenarios"], "seconds": rep["seconds"]}
+    tempfile.tempdir = None
+    shutil.rmtree(harness_dir)
+    out["harnesses"], out["harness_s"] = runs, time.perf_counter() - t1
+    out["harnesses_ok"] = all(r.get("divergences", 0) == 0 and r.get("violations", 0) == 0 for r in runs.values())
+    out["seconds"] = time.perf_counter() - t0
+    print("CPUCHECKS " + json.dumps(out))
+    return 0 if rc == 0 and out["harnesses_ok"] else 1
+
+
+CPU_CHECKS_LOG = _build.BUILD_DIR / "cpu_checks"  # .out and .err: files, so that no pipe fills up
+
+
+def start_cpu_checks() -> subprocess.Popen:
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    CPU_CHECKS_LOG.parent.mkdir(parents=True, exist_ok=True)
+    with open(f"{CPU_CHECKS_LOG}.out", "w") as out, open(f"{CPU_CHECKS_LOG}.err", "w") as err:
+        return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--cpu-checks"], stdout=out,
+                                stderr=err, env=env)
+
+
+def join_cpu_checks(proc: subprocess.Popen) -> dict:
+    """Waits for :func:`cpu_checks` and returns its JSON line."""
+    proc.wait(timeout=900)
+    stdout = Path(f"{CPU_CHECKS_LOG}.out").read_text()
+    line = next((ln for ln in stdout.splitlines() if ln.startswith("CPUCHECKS ")), None)
+    if line is None:
+        err = Path(f"{CPU_CHECKS_LOG}.err").read_text()
+        raise AssertionError(f"the CPU checks failed (rc {proc.returncode}): {err[-3000:]}")
+    return json.loads(line[len("CPUCHECKS "):])
 
 
 class CountingTransport(InProcessTransport):
@@ -1502,40 +1755,17 @@ def restore(cfg, tcfg, db) -> tuple[Trainer, int]:
 
 
 def storage_check() -> int:
-    """Phase 6d, in its own process (``chip_smoke.py --storage-check``): (a) the
-    port's harnesses on the checkout's disk; (b) the trainer of
-    ``launch/train.py`` (qwen3-4b, full width, 1 layer) checkpointing into a
-    4-shard ``ShardedDB`` on the store's own engine config, and a new trainer
-    restoring from the re-opened router; (c) the same trainer checkpointing
-    into a primary ``DB`` with a replica attached, the primary crashed once
-    the replica caught up, the replica promoted and a new trainer restoring
-    from it. Prints one JSON line; exits non-zero unless the harnesses ran
-    clean and every leaf came back bit-equal with clean scrubs."""
-    from repro_torch.testing import crash_harness, failover_harness, model_db
-
+    """Phase 6d's card legs, in their own process (``chip_smoke.py
+    --storage-check``; (a), the harnesses, ran in :func:`cpu_checks`): (b) the
+    trainer of ``launch/train.py`` (qwen3-4b, full width, 1 layer)
+    checkpointing into a 4-shard ``ShardedDB`` on the store's own engine
+    config, and a new trainer restoring from the re-opened router; (c) the
+    same trainer checkpointing into a primary ``DB`` with a replica attached,
+    the primary crashed once the replica caught up, the replica promoted and
+    a new trainer restoring from it. Prints one JSON line; exits non-zero
+    unless every leaf came back bit-equal with clean scrubs."""
     t0 = time.perf_counter()
     out, ok = {}, True
-    # (a) the harnesses make their directories with mkdtemp: under build/ckpt here
-    harness_dir = fresh_dir("6d_harness")
-    tempfile.tempdir = str(harness_dir)
-    out["filesystem"] = filesystem(harness_dir)
-    runs = {}
-    for shards in (0, 3):
-        rep = model_db.run_differential(examples=DIFF_EXAMPLES, seed=0, shards=shards)
-        runs[f"model_db shards {shards}"] = {"examples": rep["examples"], "divergences": len(rep["failures"]),
-                                             "seconds": rep["seconds"]}
-    rep = crash_harness.run_crash_loop(CRASH_ITERS, seed=0, wal_modes=("sync", "async"))
-    runs["crash_harness sync+async"] = {"iterations": rep["iterations"], "violations": len(rep["failures"]),
-                                        "crashed_mid_workload": rep["crashed_mid_workload"],
-                                        "seconds": rep["seconds"]}
-    rep = failover_harness.run_failover_loop(FAILOVER_ITERS, seed=0, wal_modes=("sync", "async"))
-    runs["failover_harness sync+async"] = {"iterations": rep["iterations"], "violations": len(rep["failures"]),
-                                           "scenarios": rep["scenarios"], "seconds": rep["seconds"]}
-    tempfile.tempdir = None
-    shutil.rmtree(harness_dir)
-    out["harnesses"] = runs
-    ok &= all(r.get("divergences", 0) == 0 and r.get("violations", 0) == 0 for r in runs.values())
-    out["harness_s"] = time.perf_counter() - t0
 
     cfg = cut("qwen3-4b", 1)
     tcfg = train.build(steps=2, batch=2, seq=512, ckpt_interval=100)
@@ -1636,20 +1866,22 @@ def storage_check() -> int:
     return 0 if ok else 1
 
 
-def phase_storage(smi: str, resume: dict) -> dict:
-    """Phase 6d in a child process (:func:`storage_check`); prints its
-    numbers and the bytes phases 6c and 6d wrote."""
+def phase_storage(smi: str, resume: dict, checks: dict) -> dict:
+    """Phase 6d: the harnesses' results from :func:`cpu_checks`, then the card
+    legs in a child process (:func:`storage_check`); prints their numbers and
+    the bytes phases 6c and 6d wrote."""
     res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--storage-check"], capture_output=True,
                          text=True, timeout=900)
     line = next((ln for ln in res.stdout.splitlines() if ln.startswith("STORAGE ")), None)
     out = json.loads(line[len("STORAGE "):]) if line else {}
     print(f"[6d storage] the port's harnesses, then qwen3-4b full width, 1 layer, batch 2 x 512, 2 steps, "
           f"checkpointed into a 4-shard ShardedDB and into a primary DB with a replica: {json.dumps(out)}")
+    fs = checks["filesystem"]
+    print(f"[6d storage] (a) in the child process beside the card phases, on {fs['fstype']} ({fs['device']} on "
+          f"{fs['mount']}): " + "; ".join(f"{name} {json.dumps(r)}" for name, r in checks["harnesses"].items())
+          + f"; {checks['harness_s']:.1f} s")
     if out.get("sharded") and out.get("failover"):
-        fs, b, c = out["filesystem"], out["sharded"], out["failover"]
-        print(f"[6d storage] (a) on {fs['fstype']} ({fs['device']} on {fs['mount']}): "
-              + "; ".join(f"{name} {json.dumps(r)}" for name, r in out["harnesses"].items())
-              + f"; {out['harness_s']:.1f} s")
+        b, c = out["sharded"], out["failover"]
         print(f"[6d storage] (b) ShardedDB, 4 shards: {b['state_bytes']} B saved in {b['save_s']:.3f} s "
               f"({b['state_bytes'] / b['save_s'] / 1e9:.3f} GB/s), {b['stall_s']:.3f} s stalled, restored in "
               f"{b['restore_s']:.3f} s, {len(b['differ'])} leaves differ; engine {b['engine']}; BValue bytes "
@@ -1664,8 +1896,9 @@ def phase_storage(smi: str, resume: dict) -> dict:
     total = resume.get("bytes_written", 0) + out.get("bytes_written", 0)
     print(f"[6d storage] bytes written: 6c {resume.get('bytes_written')}, 6d {out.get('bytes_written')}, "
           f"6c + 6d {total} ({total / 2**30:.2f} GiB of the call's 45); 6d in {out.get('seconds', 0):.1f} s")
-    if res.returncode != 0 or not out.get("ok"):
-        raise AssertionError(f"storage check failed (rc {res.returncode}): {res.stderr[-3000:]}")
+    if res.returncode != 0 or not out.get("ok") or not checks["harnesses_ok"]:
+        raise AssertionError(f"storage check failed (rc {res.returncode}, harnesses clean: "
+                             f"{checks['harnesses_ok']}): {res.stderr[-3000:]}")
     return out
 
 
@@ -1734,9 +1967,23 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script drives the port on a card", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    marks = {}  # seconds since the start at the end of each phase
     name, smi = phase_device()
     phase_build()
+    marks["build"] = time.perf_counter() - t_start
     results = phase_kernels()
+    marks["kernels"] = time.perf_counter() - t_start
+    cpu = start_cpu_checks()
+    try:
+        return run_phases(name, smi, t_start, marks, results, cpu)
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.wait()
+
+
+def run_phases(name, smi, t_start, marks, results, cpu) -> int:
+    """:func:`main` after phase 3, with the CPU checks' process running."""
     phase_parity("qwen3-4b", 64)
     phase_parity("mamba2-1.3b", 512)
     phase_parity("recurrentgemma-9b", 2048, n_layers=3)
@@ -1749,8 +1996,13 @@ def main() -> int:
     phase_bf16_record("granite-moe-1b-a400m", 64)
     phase_bf16_record("qwen2-moe-a2.7b", 64)
     phase_bf16_record("whisper-small", 64)
+    marks["parity"] = time.perf_counter() - t_start
     phase_mesh(smi)
+    marks["mesh"] = time.perf_counter() - t_start
+    mesh_paths = phase_mesh_train(smi)
+    marks["mesh train"] = time.perf_counter() - t_start
     by_path = phase_serve()
+    marks["serve"] = time.perf_counter() - t_start
     phase_grad_check("float32")
     phase_grad_check("bfloat16")
     phase_grad_check("float32", "granite-moe-1b-a400m")
@@ -1758,12 +2010,24 @@ def main() -> int:
     for arch, n_layers in (("mamba2-1.3b", 2), ("recurrentgemma-9b", 3)):
         phase_grad_check("float32", arch, n_layers)
         phase_grad_check("bfloat16", arch, n_layers, gated=False)  # ROADMAP Queue C 11
+    marks["6a"] = time.perf_counter() - t_start
     phase_train_full(smi, grow_segments=False)  # the allocator's cost, recorded
     by_path["qwen3-4b training"], train_numbers = phase_train_full(smi)
     by_path["mamba2-1.3b training"], _ = phase_train_full(smi, "mamba2-1.3b")
     by_path["recurrentgemma-9b training"], _ = phase_train_full(smi, "recurrentgemma-9b", n_layers=9)
-    phase_dryrun(smi, train_numbers)
-    phase_storage(smi, phase_resume(smi))
+    marks["6b"] = time.perf_counter() - t_start
+    t_join = time.perf_counter()
+    checks = join_cpu_checks(cpu)
+    print(f"[cpu checks] the child process beside the card phases: {checks['seconds']:.1f} s (dry run "
+          f"{checks['dryrun']['seconds']:.1f} s, harnesses {checks['harness_s']:.1f} s); waited "
+          f"{time.perf_counter() - t_join:.1f} s for it")
+    phase_dryrun(smi, train_numbers, checks)
+    marks["dryrun"] = time.perf_counter() - t_start
+    resume = phase_resume(smi)
+    marks["6c"] = time.perf_counter() - t_start
+    phase_storage(smi, resume, checks)
+    marks["6d"] = time.perf_counter() - t_start
+    by_path.update(mesh_paths)
     # a kernel's launches: those of the first path that runs it, whose shapes
     # its top-level times are taken at; every path's count beside them, and
     # the times at another path's shapes (head_dim 256, the MoE heads, the
@@ -1781,7 +2045,8 @@ def main() -> int:
             if key in entry:
                 entry[key] = {**entry[key], "launches": counts[path]}
         line["kernels"].append(entry)
-    print(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} s; seconds at the end of each: "
+          + json.dumps({k: round(v, 1) for k, v in marks.items()}))
     print("kernels: " + json.dumps({e["name"]: {"launches": e["launches_by_path"], "max_abs_err": e["max_abs_err"]}
                                     for e in line["kernels"]}))
     print(json.dumps(line))
@@ -1791,5 +2056,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    modes = {"--resume-check": resume_check, "--storage-check": storage_check, "--mutants": mutants_main}
+    modes = {"--resume-check": resume_check, "--storage-check": storage_check, "--mutants": mutants_main,
+             "--mesh-train-check": mesh_train_check, "--cpu-checks": cpu_checks}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in modes else main())

@@ -8,6 +8,12 @@ The snapshot is a host copy made before the thread starts: ``.to("cpu")``
 of a device tensor, ``clone()`` of a CPU one (whose ``.cpu()`` would be the
 same tensor). The optimizer updates parameters in place, so a write that
 held references would store the next step's weights.
+
+Under a mesh (the trainer's) only global rank 0 holds the store, and every
+rank holds a manager (``store=None`` on the others): a save gathers each
+DTensor leaf to its full value on every rank, in leaf order, on the calling
+thread, and rank 0's thread then writes exactly the bytes a save without a
+mesh writes, as the reference saves its gathered arrays.
 """
 from __future__ import annotations
 
@@ -17,22 +23,36 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import dist as rdist
 from repro_torch.tree import tree_map
 from .bvstore import BVCheckpointStore
 
 
 def host_snapshot(leaf):
-    """A host copy of ``leaf`` that later in-place updates do not reach."""
+    """A host copy of ``leaf`` that later in-place updates do not reach; a
+    DTensor's full value, gathered (a collective: every rank of its mesh
+    takes its snapshot) and then copied by the same rule, since where no
+    dim is split over more than one rank the gathered value is a view of
+    the local shard."""
+    if rdist.is_dtensor(leaf):
+        return host_snapshot(leaf.detach().full_tensor())
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         return t.to("cpu") if t.device.type != "cpu" else t.clone()
     return np.array(leaf, copy=True)
 
 
+def _gather_only(leaf) -> None:
+    """A DTensor leaf's gather, its result dropped (a rank that writes
+    nothing takes part in rank 0's snapshot)."""
+    if rdist.is_dtensor(leaf):
+        leaf.detach().full_tensor()
+
+
 class CheckpointManager:
     def __init__(
         self,
-        store: BVCheckpointStore,
+        store: BVCheckpointStore | None,
         interval_steps: int = 100,
         keep_last: int = 3,
         async_save: bool = True,
@@ -57,6 +77,10 @@ class CheckpointManager:
     def save_now(self, step: int, state, extra_meta: dict | None = None) -> None:
         self.wait()  # one in-flight checkpoint at a time; wait() counts its own stall
         t0 = time.monotonic()
+        if self.store is None:  # a rank other than 0 under a mesh: its part is the gathers
+            tree_map(_gather_only, state)
+            self.stall_seconds += time.monotonic() - t0
+            return
         host_state = tree_map(host_snapshot, state)
         snapshot_s = time.monotonic() - t0
 

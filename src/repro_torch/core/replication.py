@@ -17,7 +17,8 @@ Shape of the system::
                                       │ (scheduler: single-flight repl job)
                                   Follower.drain
                                       ├─ mirror separated values (pread from
-                                      │  primary, pwrite + fsync locally)
+                                      │  primary, pwrite + fsync locally;
+                                      │  a miss stops the apply there)
                                       ├─ append payloads to own WAL
                                       └─ memtable apply at the shipped seq
 
@@ -28,6 +29,14 @@ Shape of the system::
   bridges the gap. The primary *retains* flushed WAL segments until every
   registered follower has acked past them, so a catch-up can always find
   the missing groups.
+* **Value before pointer** — a streaming follower applies a group only
+  once every value it points at is mirrored and fsynced. An async
+  primary ships a pointer before its value writer has necessarily landed
+  the bytes; the follower then stops at that group and retries it on a
+  later drain, so its own WAL never holds a pointer into a hole (a hole
+  there would outlive a crash of the replica, silently). Only the
+  promotion's final catch-up applies past a miss: the dead primary's
+  missing values are the promote-time dangling-pointer drop's problem.
 * **Divergence detection** — the primary folds a rolling CRC over each run
   of ``repl_crc_interval`` consecutive payloads and ships the digest with a
   later frame; the follower folds the same CRC over what it actually
@@ -268,10 +277,11 @@ class Follower:
         self._mirror_read_fds: dict[int, int] = {}
         self._mirror_write_fds: dict[int, int] = {}
         self.max_mirrored_file = -1
-        # async primaries ship the pointer before the value write thread
-        # has necessarily hit the disk — a missed fetch is retried on
-        # later drains (the bytes land moments later) instead of leaving
-        # a permanent hole in the mirrored file
+        # a streaming apply stopped at a value the primary has not landed
+        # yet (wait_caught_up re-drives the drain while this is set)
+        self._value_stall = False
+        # values the promotion's final catch-up could not fetch: retried
+        # once more before the stream closes (see seal)
         self._miss_retry: dict[tuple[int, int], ValueOffset] = {}
 
     # -- transport-facing -------------------------------------------------
@@ -382,36 +392,58 @@ class Follower:
                     run = None  # fully stale: keep scanning
             if run is None:
                 return progressed
-            self._apply_batches([(s, p) for s, p in run if s > applied])
-            progressed = True
+            run = [(s, p) for s, p in run if s > applied]
+            done = self._apply_batches(run)
+            progressed |= done > 0
+            if done < len(run):
+                # stopped at a value not yet on the primary's disk: the
+                # rest waits for a later drain
+                with self._lock:
+                    first = run[done][0]
+                    if first not in self._pending or self._pending[first][-1][0] < run[-1][0]:
+                        self._pending[first] = run[done:]
+                return progressed
 
-    def _apply_batches(self, batches: list[tuple[int, bytes]]) -> None:
+    def _apply_batches(self, batches: list[tuple[int, bytes]]) -> int:
         """Apply contiguous ``(seq, payload)`` groups: mirror separated
         values first (fsynced — the same value-before-pointer durability
         barrier the primary's sync mode pays), then the local WAL append,
-        then the memtable at the shipped sequence numbers."""
+        then the memtable at the shipped sequence numbers. A streaming
+        apply stops before the first group with a value it could not
+        mirror and make durable. Returns how many groups it applied."""
         if not batches:
-            return
+            return 0
         db = self.db
         cfg = db.cfg
         interval = max(1, cfg.repl_crc_interval)
         decoded = []
         touched: set[int] = set()
+        stalled = False
         for seq, payload in batches:
             pseq, entries = decode_entries(payload)
             if pseq != seq:
                 # header/frame mismatch — treat as corruption, force catch-up
                 db.stats.add("repl_frames_corrupt")
-                return
+                return 0
+            ok = True
             for type_, _key, value in entries:
                 if type_ == kTypeValuePtr:
-                    self._mirror_value(ValueOffset.decode(value), touched)
+                    ok &= self._mirror_value(ValueOffset.decode(value), touched)
+            if not ok and not self.sealed:
+                stalled = True
+                break
             decoded.append((seq, payload, entries))
         for fd in touched:
             try:
                 db.env.fsync(fd)
             except OSError:
-                pass
+                if not self.sealed:
+                    # the mirrored bytes may not survive a crash: no
+                    # pointer to them goes into the WAL
+                    decoded, stalled = [], True
+        self._value_stall = stalled
+        if not decoded:
+            return 0
         wal = db.wal
         if wal is not None:
             wal.append_many([p for _s, p, _e in decoded])
@@ -451,17 +483,20 @@ class Follower:
                 cb(db._seq)
             except Exception:
                 pass
+        return len(decoded)
 
-    def _mirror_value(self, voff: ValueOffset, touched: set[int]) -> None:
+    def _mirror_value(self, voff: ValueOffset, touched: set[int]) -> bool:
         if self._mirror_once(voff, touched):
-            return
+            return True
         # fetch failed (typically: an async primary's value-writer thread
-        # has not landed the bytes yet) — keep the record, count the miss,
-        # and queue a retry; reads of this version fall back like any
-        # dangling pointer until the retry fills the hole
+        # has not landed the bytes yet). Streaming, the apply stops here
+        # and the group is retried whole; in the promotion's final
+        # catch-up the record is kept and the fetch retried once more in
+        # seal, reads of it falling back like any dangling pointer
         self.db.stats.add("repl_value_fetch_misses")
-        if len(self._miss_retry) < 4096:
+        if self.sealed and len(self._miss_retry) < 4096:
             self._miss_retry[(voff.file_id, voff.offset)] = voff
+        return False
 
     def _mirror_once(self, voff: ValueOffset, touched: set[int]) -> bool:
         db = self.db
@@ -510,6 +545,7 @@ class Follower:
         db = self.db
         batch: list[tuple[int, bytes]] = []
         gap_seen = False
+        stalled = False
         # The live primary's WAL file shows written-but-unsynced bytes; a
         # group whose fsync is about to fail must never reach the replica.
         # Publish (and therefore ship) happens after the sync-mode fsync,
@@ -531,12 +567,18 @@ class Follower:
                     break
                 batch.append((seq, payload))
                 if len(batch) >= 128:
-                    self._apply_batches(batch)
+                    stalled = self._apply_batches(batch) < len(batch)
                     batch = []
+                    if stalled:
+                        break
         except OSError:
             db.stats.add("repl_catchup_errors")
-        if batch:
-            self._apply_batches(batch)
+        if batch and not stalled:
+            stalled = self._apply_batches(batch) < len(batch)
+        if stalled:
+            # the groups past the stall were read but not applied: read
+            # the segments again from the start next time
+            self._reader.reset()
         db.stats.add("repl_catchups")
         if gap_seen and self.last_shipped_seen > db._seq:
             # A hole in the durable stream cannot be filled by future
@@ -593,8 +635,8 @@ class Follower:
         import time as _time
 
         deadline = _time.monotonic() + timeout
-        with self._lock:
-            while True:
+        while True:
+            with self._lock:
                 if self.db._seq >= target_seq and not self._miss_retry:
                     return True
                 if self.sealed or self.diverged:
@@ -603,6 +645,10 @@ class Follower:
                 if remaining <= 0:
                     return False
                 self._cv.wait(timeout=min(remaining, 0.05))
+                stalled = self._value_stall
+            if stalled:
+                # no frame may come to re-drive a stalled apply
+                self.nudge()
 
     def seal(self, final_catch_up: bool = True) -> None:
         """Stop the stream: no further frames are accepted or applied.

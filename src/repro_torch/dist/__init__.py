@@ -24,6 +24,11 @@ explicit-collective paths work on: each rank holds the global value of such
 a tensor, or inside a path its own shard, and the path's collectives run on
 the process group of a mesh dim (``mesh.get_group("model")``). On a DTensor
 :func:`constrain` redistributes to the resolved placements.
+
+Training under a mesh (the last section): the train step runs the model on
+each rank's rows of the batch (:func:`batch_split`), and the placed
+parameters are gathered at use (:func:`gather_param`), their gradients
+averaged over the data ranks and cut to each rank's shard.
 """
 from __future__ import annotations
 
@@ -288,13 +293,6 @@ def all_reduce_axes(x: torch.Tensor, mesh, entry, op) -> torch.Tensor:
     return x
 
 
-def no_autograd(name: str, *tensors) -> None:
-    """The explicit paths run forward only: their gradient needs the
-    trainer under a mesh, which the port does not have yet."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: the explicit-collective path has no backward; run it under torch.no_grad()")
-
-
 # ---------------------------------------------------------------------------
 # ambient mesh
 # ---------------------------------------------------------------------------
@@ -348,3 +346,255 @@ def constrain_tree(tree, axes_tree, drop_leading: int = 0, rules=None):
         return constrain(x, t[drop_leading:], rules)
 
     return tree_map(one, tree, axes_tree)
+
+
+def under_current_mesh(fn):
+    """``fn`` run under the mesh, rules and batch split in effect now,
+    wherever it is called: a remat recompute runs in the backward, on
+    autograd's thread for CUDA tensors, where the caller's contexts are not
+    set."""
+    mesh, rules, split = _active_mesh.get(), _active_rules.get(), _batch_split.get()
+
+    def run(*args, **kwargs):
+        with mesh_context(mesh, rules), _split_context(split):
+            return fn(*args, **kwargs)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# training under a mesh: the batch split over the data dims, and parameters
+# gathered at use
+#
+# The train step gives each rank its rows of the global batch (the
+# ``batch`` rule's mesh dims split them) and runs the model on them under
+# :func:`batch_split`. Compute is replicated across the other mesh dims
+# (``model``): each of their ranks computes the same values. A placed
+# parameter (a DTensor) is gathered to the plain full tensor the model
+# computes on just before its layer runs (:func:`gather_param`); its
+# gradient is averaged over the ranks that split the batch and cut to the
+# rank's shard. So each rank's loss is an estimate of the global loss whose
+# mean over the data ranks is the global loss (``softmax_cross_entropy``
+# divides a rank's sum by its share of the global token count), and a value
+# every data rank computes alike (the MoE aux loss over the gathered tokens)
+# enters each rank's loss whole.
+# ---------------------------------------------------------------------------
+
+_batch_split: contextvars.ContextVar = contextvars.ContextVar("repro_torch_dist_batch_split", default=None)
+
+
+@contextlib.contextmanager
+def _split_context(axes):
+    token = _batch_split.set(axes)
+    try:
+        yield
+    finally:
+        _batch_split.reset(token)
+
+
+def batch_split(entry):
+    """The context the train step runs the model in under a mesh: the batch
+    the model sees is this rank's rows of the global batch, split over
+    ``entry``'s mesh dims of the active mesh (``None``: not split, every
+    rank holds the whole batch)."""
+    return _split_context(entry_axes(entry))
+
+
+def batch_axes() -> tuple[str, ...] | None:
+    """The mesh dims that split the batch the model sees inside
+    :func:`batch_split` (``()`` where the train step does not split it);
+    None outside it, where the model sees the global batch."""
+    return _batch_split.get()
+
+
+def axes_size(mesh, axes) -> int:
+    sizes = mesh_shape(mesh)
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return n
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the same storage: in-place updates reach the
+    DTensor), or ``t`` itself."""
+    if not is_dtensor(t):
+        return t
+    with torch.no_grad():
+        return t.to_local()
+
+
+def sharded_axes(t) -> tuple[str, ...]:
+    """The mesh dims a DTensor is sharded over, in the mesh's order: ``()``
+    for a plain tensor."""
+    if not is_dtensor(t):
+        return ()
+    return tuple(a for d in placement_spec(t) for a in d)
+
+
+def sum_over_shards(values: list, tensors: list) -> list:
+    """``values[i]`` (0-d, computed on ``tensors[i]``'s local shard) summed
+    over the ranks that hold the other shards of that tensor, so that each
+    shard counts once and a replica not again: one all-reduce per mesh dim
+    over the values of the tensors it shards."""
+    import torch.distributed as dist
+
+    sharded = [sharded_axes(t) for t in tensors]
+    mesh = next((t.device_mesh for t, ax in zip(tensors, sharded) if ax), None)
+    if mesh is None:
+        return values
+    out = list(values)
+    for a in mesh.mesh_dim_names:
+        idx = [i for i, ax in enumerate(sharded) if a in ax]
+        if idx:
+            v = torch.stack([out[i] for i in idx])
+            dist.all_reduce(v, group=mesh.get_group(a))
+            for j, i in enumerate(idx):
+                out[i] = v[j]
+    return out
+
+
+def reduce_scatter_axis(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """``x`` summed over the ranks of mesh dim ``axis``, each rank keeping
+    its slice of ``dim`` (the inverse of :func:`all_gather_axes`' order)."""
+    import torch.distributed as dist
+
+    inp = x.movedim(dim, 0).contiguous()
+    out = inp.new_empty((inp.shape[0] // mesh_shape(mesh)[axis],) + inp.shape[1:])
+    dist.reduce_scatter_tensor(out, inp, group=mesh.get_group(axis))
+    return out.movedim(0, dim)
+
+
+def _grad_to_shard(g: torch.Tensor, spec, mesh, over) -> torch.Tensor:
+    """The gradient ``g`` of a parameter's full value (per tensor dim
+    ``spec`` names the mesh dims that shard it) → the mean over the ranks of
+    the mesh dims ``over`` (those that split the batch), cut to this rank's
+    shard. A dim sharded by one batch dim alone is reduce-scattered over it;
+    the other batch dims are all-reduced."""
+    import torch.distributed as dist
+
+    def cut(x, d, axes):
+        return x.narrow(d, shard_slice(mesh, axes, x.shape[d]).start, x.shape[d] // axes_size(mesh, axes))
+
+    for d, axes in enumerate(spec):  # dims no batch dim shards: this rank's slice
+        if axes and not set(axes) & set(over):
+            g = cut(g, d, axes)
+    g = g.clone(memory_format=torch.contiguous_format) if over else g  # the all-reduces work in place
+    for a in over:
+        d = next((d for d, axes in enumerate(spec) if tuple(axes) == (a,)), None)
+        if d is None:
+            g = g.contiguous()
+            dist.all_reduce(g, group=mesh.get_group(a))
+        else:
+            g = reduce_scatter_axis(g, mesh, a, d)
+    for d, axes in enumerate(spec):  # dims sharded jointly with a batch dim
+        if axes and set(axes) & set(over) and tuple(axes) not in {(a,) for a in over}:
+            g = cut(g, d, axes)
+    n = axes_size(mesh, over)
+    return g / n if n > 1 else g
+
+
+class _GatherParam(torch.autograd.Function):
+    """A placed parameter (or layer ``index`` of a stacked one) as the plain
+    full tensor: all-gathered over the mesh dims that shard it. The backward
+    adds the gradient, averaged over the ranks that split the batch and cut
+    to this rank's shard, into the parameter's ``.grad`` (a DTensor placed
+    as the parameter) in place, as :func:`repro_torch.models.common.layer_view`
+    does; autograd itself carries no gradient to the parameter."""
+
+    @staticmethod
+    def forward(ctx, p, index, over):
+        ctx.p, ctx.index, ctx.over = p, index, over
+        return _gather(p, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, index = ctx.p, ctx.index
+        spec = placement_spec(p)[0 if index is None else 1:]
+        shard = _grad_to_shard(g, spec, p.device_mesh, ctx.over)
+        with torch.no_grad():
+            if p.grad is None:
+                from torch.distributed.tensor import DTensor
+
+                p.grad = DTensor.from_local(torch.zeros_like(p.to_local()), p.device_mesh, p.placements,
+                                            run_check=False, shape=p.shape, stride=p.stride())
+            acc = p.grad.to_local()
+            (acc if index is None else acc[index]).add_(shard.to(acc.dtype))
+        return None, None, None
+
+
+def _gather(p, index) -> torch.Tensor:
+    x = local(p)
+    spec = placement_spec(p)
+    if index is None:
+        x = x.view(x.shape)  # a tensor of its own, not the DTensor's local one
+    else:
+        if spec[0]:
+            raise ValueError(f"gather_param: dim 0 of a stacked parameter is sharded over {spec[0]}")
+        x, spec = x[index], spec[1:]
+    for d, axes in enumerate(spec):
+        if axes:
+            x = all_gather_axes(x, p.device_mesh, axes, d)
+    return x
+
+
+def gather_param(p: torch.Tensor, index: int | None = None) -> torch.Tensor:
+    """The plain full value of a placed parameter, or of its layer ``index``
+    (dim 0 of a stacked parameter, which is never sharded), for the model to
+    compute on: gathered over the mesh dims that shard it. When autograd
+    records it, the gradient reaches ``p.grad`` as :class:`_GatherParam`
+    says. A plain ``p`` is returned as it is (``p[index]`` for an index)."""
+    if not is_dtensor(p):
+        return p if index is None else p[index]
+    if torch.is_grad_enabled() and p.requires_grad:
+        return _GatherParam.apply(p, index, batch_axes() or ())
+    return _gather(p, index)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows (dim 0) concatenated over ``entry``'s mesh dims;
+    the backward reduce-scatters the gradient back to each rank's rows,
+    summed over the ranks that used them."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, entry):
+        ctx.mesh, ctx.entry = mesh, entry
+        return all_gather_axes(x, mesh, entry, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        for a in entry_axes(ctx.entry):  # the major dim first: the gather's inverse
+            g = reduce_scatter_axis(g, ctx.mesh, a, 0)
+        return g, None, None
+
+
+def gather_rows(x: torch.Tensor, mesh, entry) -> torch.Tensor:
+    """:func:`all_gather_axes` along dim 0, with a backward."""
+    return _GatherRows.apply(x, mesh, entry)
+
+
+class _PMean(torch.autograd.Function):
+    """The mean over the ranks of each of ``entry``'s mesh dims in turn (the
+    reference's ``pmean``); its backward is the same mean of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, entry):
+        ctx.mesh, ctx.entry = mesh, entry
+        return _pmean(x, mesh, entry)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _pmean(g, ctx.mesh, ctx.entry), None, None
+
+
+def _pmean(x, mesh, entry):
+    import torch.distributed as dist
+
+    x = x.clone()
+    for a in entry_axes(entry):
+        x = all_reduce_axes(x, mesh, a, dist.ReduceOp.SUM) / mesh_shape(mesh)[a]
+    return x
+
+
+def pmean(x: torch.Tensor, mesh, entry) -> torch.Tensor:
+    return _PMean.apply(x, mesh, entry)

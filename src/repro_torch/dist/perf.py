@@ -41,10 +41,14 @@ def perf_context(cfg: PerfConfig):
 
 
 def under_current_flags(fn):
-    """``fn`` run under the flags in effect now, wherever it is called. A
+    """``fn`` run under the flags in effect now, and the mesh context
+    (:func:`repro_torch.dist.under_current_mesh`), wherever it is called. A
     remat recompute runs in the backward, after the caller's
     :func:`perf_context` may have exited, and must take the forward's path."""
+    from repro_torch.dist import under_current_mesh
+
     cfg = perf()
+    fn = under_current_mesh(fn)
 
     def run(*args, **kwargs):
         with perf_context(cfg):

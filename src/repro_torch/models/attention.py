@@ -175,7 +175,8 @@ def sharded_decode_update_attend(q, k_cache, v_cache, k_new, v_new, pos):
     and of the KV heads (``act_kv`` takes ``model`` when ``kv_seq`` cannot),
     the output gathered back. Where ``model`` splits S the cache must be
     placed with S on it. Returns (out (B,1,H,D), k_cache, v_cache), the
-    caches updated in place. Forward only.
+    caches updated in place. Forward only, as decode does not train in
+    either package: on a placed cache it raises under autograd.
     ``sharded_decode_update_attend.mesh_calls`` counts the calls on a
     placed cache.
     """
@@ -194,7 +195,9 @@ def sharded_decode_update_attend(q, k_cache, v_cache, k_new, v_new, pos):
 
     import torch.distributed as dist
 
-    rdist.no_autograd("sharded_decode_update_attend", q, k_new, v_new)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k_new, v_new)):
+        raise RuntimeError("sharded_decode_update_attend: decode does not train, and this path has no backward; "
+                           "run it under torch.no_grad()")
     sharded_decode_update_attend.mesh_calls += 1
     cm = k_cache.device_mesh
     bs, ss, ks, ds = rdist.placement_spec(k_cache)

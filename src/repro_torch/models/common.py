@@ -9,8 +9,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import dist as rdist
 from repro_torch.dist import Axes
+from repro_torch.dist.perf import under_current_flags
 
 
 def init_truncated_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:
@@ -130,7 +133,10 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torc
     """logits (B,T,V) fp32; labels (B,T) int. Returns (loss, metrics) with
     metrics ``{loss, accuracy, tokens}``, as the reference: the max is held
     out of the gradient, and the label logit is taken by a masked reduction
-    over the vocabulary."""
+    over the vocabulary. Inside :func:`repro_torch.dist.batch_split` the rows
+    are this rank's of a batch split over n data ranks: ``tokens`` is the
+    global count, and the sums are divided by 1/n of it, so that the mean
+    over the data ranks is the global loss."""
     V = logits.shape[-1]
     mx = logits.max(dim=-1, keepdim=True).values.detach()
     lse = torch.log(torch.exp(logits - mx).sum(dim=-1)) + mx[..., 0]
@@ -139,8 +145,16 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torc
     nll = lse - label_logit
     mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
     denom = torch.clamp(mask.sum(), min=1.0)
-    loss = (nll * mask).sum() / denom
-    acc = ((logits.argmax(dim=-1) == labels) * mask).sum() / denom
+    share = denom
+    over = rdist.batch_axes()
+    if over:  # this rank's rows of a batch split over the data ranks: the global count, and this rank's share of it
+        import torch.distributed as dist
+
+        count = rdist.all_reduce_axes(mask.sum().detach().clone(), rdist.active_mesh(), over, dist.ReduceOp.SUM)
+        denom = torch.clamp(count, min=1.0)
+        share = denom / rdist.axes_size(rdist.active_mesh(), over)
+    loss = (nll * mask).sum() / share
+    acc = ((logits.argmax(dim=-1) == labels) * mask).sum() / share
     return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
 
 
@@ -184,10 +198,31 @@ def layer_view(p: torch.Tensor, l: int) -> torch.Tensor:
     post-accumulate-grad hooks see none. The memory gain rests on the
     engine's order of ready nodes; ``test_stacked_gradients_land_layer_by_layer``
     pins it on the CPU and its ``_on_card`` twin in ``tests/test_torch_gpu.py``
-    on CUDA."""
+    on CUDA.
+
+    A parameter placed on a mesh (a DTensor, the trainer under a mesh) is
+    gathered to the plain full layer here instead, and its gradient, reduced
+    to this rank's shard, is added into its ``.grad`` the same way
+    (:func:`repro_torch.dist.gather_param`)."""
+    if rdist.is_dtensor(p):
+        return rdist.gather_param(p, l)
     if torch.is_grad_enabled() and p.requires_grad:
         return _LayerSlice.apply(p, l)
     return p[l]
+
+
+def run_layer(fn, remat: bool, *args, **checkpoint_kw):
+    """One layer, ``fn(*args)``, where ``fn`` takes the layer's parameters
+    itself (:func:`layer_view`) from an index among ``args``. With ``remat``
+    nothing inside is saved and ``fn`` runs again in the backward, under the
+    flags and the mesh in effect now: a placed parameter is gathered again
+    there, so a rank holds one layer's gathered parameters at a time.
+    ``checkpoint_kw`` go to ``torch.utils.checkpoint.checkpoint`` (§Perf
+    V1's ``context_fn``)."""
+    if remat:
+        return checkpoint(under_current_flags(fn), *args, use_reentrant=False, preserve_rng_state=False,
+                          **checkpoint_kw)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------

@@ -20,11 +20,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import kernel_path, resolve_device
+from repro_torch import dist as rdist
 from repro_torch.dist import Axes
-from repro_torch.dist.perf import under_current_flags
 from repro_torch.kernels import ops
 from .common import (
     embed_axes,
@@ -33,6 +32,7 @@ from .common import (
     layer_view,
     logits_from_hidden,
     rmsnorm,
+    run_layer,
     softmax_cross_entropy,
     softplus,
 )
@@ -226,8 +226,17 @@ class Mamba2LM(nn.Module):
     def _layer_params(self, l: int) -> dict:
         return {k: layer_view(getattr(self, k), l) for k in LAYER_PARAMS}
 
-    def _out_embed(self) -> torch.Tensor:
-        return self.embed if self.cfg.tie_embeddings else self.out_embed
+    def _out_embed(self, embed=None) -> torch.Tensor:
+        """The output projection: when tied, the input embedding, or
+        ``embed``, that already gathered."""
+        if not self.cfg.tie_embeddings:
+            return rdist.gather_param(self.out_embed)
+        return rdist.gather_param(self.embed) if embed is None else embed
+
+    def _layer_at(self, l, x):
+        """Layer ``l``'s parameters taken, then :meth:`_layer` (see
+        :func:`~.common.run_layer`): x."""
+        return self._layer(self._layer_params(l), x)[0]
 
     def _conv(self, lp, xBC, conv_state=None):
         """Causal depthwise conv along T. xBC (B,T,conv_dim); the taps are
@@ -283,23 +292,19 @@ class Mamba2LM(nn.Module):
         out = y @ lp["out_proj"].to(y.dtype)
         return x + out, conv_new, ssm_new
 
-    def _head(self, x):
-        x = rmsnorm(x, self.ln_f, self.cfg.rms_eps)
-        return logits_from_hidden(x, self._out_embed(), self.cfg.vocab)
+    def _head(self, x, embed=None):
+        x = rmsnorm(x, rdist.gather_param(self.ln_f), self.cfg.rms_eps)
+        return logits_from_hidden(x, self._out_embed(embed), self.cfg.vocab)
 
     # -- public api ---------------------------------------------------------
     def forward(self, tokens, *, remat: bool = False):
         """tokens (B,T) → (fp32 logits (B,T,V), aux loss 0). ``remat`` runs
         each layer's forward again in the backward."""
-        x = embed_tokens(self.embed, tokens, self.compute_dtype)
+        embed = rdist.gather_param(self.embed)  # once: the tied head's too
+        x = embed_tokens(embed, tokens, self.compute_dtype)
         for l in range(self.cfg.n_layers):
-            lp = self._layer_params(l)
-            if remat:
-                x = checkpoint(under_current_flags(lambda lp, x: self._layer(lp, x)[0]), lp, x, use_reentrant=False,
-                               preserve_rng_state=False)
-            else:
-                x, _, _ = self._layer(lp, x)
-        return self._head(x), torch.zeros((), dtype=torch.float32, device=x.device)
+            x = run_layer(self._layer_at, remat, l, x)
+        return self._head(x, embed), torch.zeros((), dtype=torch.float32, device=x.device)
 
     def loss(self, batch: dict, *, remat: bool = True, q_chunk: int = 0):
         """(loss, metrics) of the next-token labels, as the reference's

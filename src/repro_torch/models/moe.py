@@ -25,7 +25,9 @@ Two rules are written out where the reference leaves them to its scatters:
 §Perf V2 (:func:`moe_ffn_local`): under a mesh whose data dims split the
 batch, each data rank routes its own batch shard through the same body, its
 capacity taken from its local token count, and the ranks average the aux
-loss and gather the outputs.
+loss (and, given the global batch, gather the outputs). Under the train
+step's batch split the baseline gathers the tokens and routes them all
+(:func:`moe_ffn`).
 """
 from __future__ import annotations
 
@@ -127,35 +129,53 @@ def dispatch(top_i: torch.Tensor, top_p: torch.Tensor, E: int, C: int):
 def moe_ffn(lp: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     """lp: this layer's MoE leaves; x (B, T, d) → (y (B, T, d) in x's dtype,
     the aux loss, an fp32 scalar). Dispatch is over the whole batch, or per
-    data shard under §Perf V2 where :func:`moe_ffn_local` applies."""
+    data shard under §Perf V2 where :func:`moe_ffn_local` applies.
+
+    Which batch x is: the global batch (every rank's global value, as
+    serving passes it), except inside :func:`repro_torch.dist.batch_split`
+    (the train step under a mesh), where x is this rank's rows of the batch
+    split over the data ranks. There the baseline gathers the tokens over
+    those ranks first and routes the global batch, so the capacity and the
+    aux loss are the reference's, and returns this rank's rows of y (the
+    gather's backward brings each rank its rows' gradient)."""
     if perf().moe_local_dispatch:
         y, aux = moe_ffn_local(lp, x, cfg)
         if y is not None:
             return y, aux
-    return _moe_tokens(lp, x, cfg)
+    over = rdist.batch_axes()
+    if not over:
+        return _moe_tokens(lp, x, cfg)
+    mesh = rdist.active_mesh()
+    y, aux = _moe_tokens(lp, rdist.gather_rows(x, mesh, over), cfg)
+    rows = rdist.shard_slice(mesh, over, y.shape[0])
+    return y[rows], aux
 
 
 def moe_ffn_local(lp: dict, x: torch.Tensor, cfg):
-    """§Perf V2: x (B, T, d) is every rank's global value; this rank routes
-    its data shard of the batch (capacity from its own N = B_l·T), the aux
-    loss is averaged over the data dims' ranks and y gathered over them.
-    (None, None) without a mesh or where the batch is not split, as the
-    reference. Forward only. ``moe_ffn_local.mesh_calls`` counts the calls
-    that route a shard."""
+    """§Perf V2: each data rank routes its shard of the batch (capacity from
+    its own N = B_l·T), the aux loss is averaged over the data dims' ranks
+    (:func:`repro_torch.dist.pmean`) and y is this rank's rows. x as
+    :func:`moe_ffn` says: the global batch, whose rows this rank cuts and
+    whose y it gathers over the data ranks (:func:`repro_torch.dist.
+    gather_rows`), or inside the train step's batch split its own rows,
+    whose y it returns. Both collectives have a backward. (None, None)
+    without a mesh or where the batch is not split, as the reference.
+    ``moe_ffn_local.mesh_calls`` counts the calls that route a shard."""
     mesh = rdist.active_mesh()
     if mesh is None:
         return None, None
-    bspec = rdist.logical_to_spec(("batch", "seq", "embed"), x.shape, mesh)[0]
+    split = rdist.batch_axes()
+    if split is None:  # the global batch
+        bspec = rdist.logical_to_spec(("batch", "seq", "embed"), x.shape, mesh)[0]
+    else:  # this rank's rows
+        bspec = split or None
     if bspec is None:  # batch unsharded: local is global
         return None, None
-    import torch.distributed as dist
-
-    rdist.no_autograd("moe_ffn_local", x, *lp.values())
     moe_ffn_local.mesh_calls += 1
-    y, aux = _moe_tokens(lp, x[rdist.shard_slice(mesh, bspec, x.shape[0])], cfg)
-    for a in rdist.entry_axes(bspec):  # the mean over each data dim in turn, as the reference's pmean
-        aux = rdist.all_reduce_axes(aux, mesh, a, dist.ReduceOp.SUM) / rdist.mesh_shape(mesh)[a]
-    return rdist.all_gather_axes(y, mesh, bspec, 0), aux
+    rows = x if split is not None else x[rdist.shard_slice(mesh, bspec, x.shape[0])]
+    y, aux = _moe_tokens(lp, rows, cfg)
+    aux = rdist.pmean(aux, mesh, bspec)  # the mean over each data dim in turn, as the reference's pmean
+    return (y if split is not None else rdist.gather_rows(y, mesh, bspec)), aux
 
 
 moe_ffn_local.mesh_calls = 0

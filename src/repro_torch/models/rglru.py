@@ -26,11 +26,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import kernel_path, resolve_device
+from repro_torch import dist as rdist
 from repro_torch.dist import Axes
-from repro_torch.dist.perf import under_current_flags
 from repro_torch.kernels import ops
 from . import attention as attn_lib
 from .common import (
@@ -42,6 +41,7 @@ from .common import (
     logits_from_hidden,
     rmsnorm,
     rope_tables,
+    run_layer,
     sigmoid,
     softmax_cross_entropy,
     softplus,
@@ -237,14 +237,19 @@ class GriffinLM(nn.Module):
                 "length": Axes()}
 
     def _layers(self, cache: dict | None = None):
-        """(kind, layer parameters, layer cache or None) for every layer in
-        order. The layer cache holds views into ``cache``."""
+        """(kind, slot, index in the slot, layer cache or None) for every
+        layer in order. The layer cache holds views into ``cache``."""
         for g in range(self.n_groups):
             for s, slot in enumerate(self.slots):
                 lc = {k: v[g] for k, v in cache["slots"][s].items()} if cache is not None else None
-                yield slot.kind, slot.layer(g), lc
+                yield slot.kind, slot, g, lc
         for s, slot in enumerate(self.rem):
-            yield slot.kind, slot.layer(0), cache["rem"][s] if cache is not None else None
+            yield slot.kind, slot, 0, cache["rem"][s] if cache is not None else None
+
+    def _slot_layer(self, kind, slot, g, x, sin, cos, cache=None, pos=None):
+        """Layer ``g`` of ``slot``: its parameters taken, then :meth:`_layer`
+        (see :func:`~.common.run_layer`)."""
+        return self._layer(kind, slot.layer(g), x, sin, cos, cache, pos)
 
     def _layer(self, kind, lp, x, sin, cos, cache=None, pos=None):
         """One layer. ``cache=None``: the whole sequence, no cache (forward).
@@ -291,32 +296,35 @@ class GriffinLM(nn.Module):
         h2 = rmsnorm(x, lp["ln2"], cfg.rms_eps)
         return x + apply_mlp(lp["mlp"], h2, cfg)
 
-    def _out_embed(self) -> torch.Tensor:
-        return self.embed if self.cfg.tie_embeddings else self.out_embed
+    def _out_embed(self, embed=None) -> torch.Tensor:
+        """The output projection: when tied, the input embedding, or
+        ``embed``, that already gathered."""
+        if not self.cfg.tie_embeddings:
+            return rdist.gather_param(self.out_embed)
+        return rdist.gather_param(self.embed) if embed is None else embed
 
-    def _head(self, x):
-        x = rmsnorm(x, self.ln_f, self.cfg.rms_eps)
-        return logits_from_hidden(x, self._out_embed(), self.cfg.vocab)
+    def _head(self, x, embed=None):
+        x = rmsnorm(x, rdist.gather_param(self.ln_f), self.cfg.rms_eps)
+        return logits_from_hidden(x, self._out_embed(embed), self.cfg.vocab)
 
-    def _run(self, tokens, cache=None, pos=None, remat=False):
+    def _run(self, tokens, cache=None, pos=None, remat=False, embed=None):
+        """``embed``: the input embedding already gathered, else gathered here."""
         cfg = self.cfg
         T = tokens.shape[1]
-        x = embed_tokens(self.embed, tokens, self.compute_dtype)
+        x = embed_tokens(rdist.gather_param(self.embed) if embed is None else embed, tokens, self.compute_dtype)
         positions = torch.arange(T, device=tokens.device) if pos is None else torch.tensor([pos], device=tokens.device)
         sin, cos = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-        for kind, lp, lc in self._layers(cache):
-            if remat:  # nothing saved inside a layer: its forward runs again in the backward
-                x = checkpoint(under_current_flags(self._layer), kind, lp, x, sin, cos, use_reentrant=False, preserve_rng_state=False)
-            else:
-                x = self._layer(kind, lp, x, sin, cos, lc, pos)
+        for kind, slot, g, lc in self._layers(cache):
+            x = run_layer(self._slot_layer, remat, kind, slot, g, x, sin, cos, lc, pos)
         return x
 
     # -- public api ---------------------------------------------------------
     def forward(self, tokens, *, remat: bool = False):
         """tokens (B,T) → (fp32 logits (B,T,V), aux loss 0). ``remat`` runs
         each layer's forward again in the backward."""
-        x = self._run(tokens, remat=remat)
-        return self._head(x), torch.zeros((), dtype=torch.float32, device=x.device)
+        embed = rdist.gather_param(self.embed)  # once: the tied head's too
+        x = self._run(tokens, remat=remat, embed=embed)
+        return self._head(x, embed), torch.zeros((), dtype=torch.float32, device=x.device)
 
     def loss(self, batch: dict, *, remat: bool = True, q_chunk: int = 0):
         """(loss, metrics) of the next-token labels, as the reference's

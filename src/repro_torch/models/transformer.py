@@ -27,12 +27,11 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch import dist as rdist
 from repro_torch.dist import Axes
-from repro_torch.dist.perf import perf, under_current_flags
+from repro_torch.dist.perf import perf
 from . import attention as attn_lib
 from .common import (
     apply_rope,
@@ -47,6 +46,7 @@ from .common import (
     norm,
     rmsnorm,
     rope_tables,
+    run_layer,
     save_only_these_names,
     softmax_cross_entropy,
 )
@@ -127,33 +127,64 @@ def row_parallel_einsum(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``model`` dim that divides F: each ``model`` rank multiplies its slice
     of F, and the partial products, rounded to u's dtype, are summed by a
     reduce-scatter and an all-gather over the ``model`` ranks (the ring
-    all-reduce's two halves) in that dtype. CPU tensors take the plain
-    product, as the reference's CPU backend does. Forward only.
-    ``row_parallel_einsum.mesh_calls`` counts the calls that take the
-    collective path."""
+    all-reduce's two halves) in that dtype (:class:`RowParallel`, which has
+    a backward). CPU tensors take the plain product, as the reference's CPU
+    backend does. ``row_parallel_einsum.mesh_calls`` counts the calls that
+    take the collective path (a remat recompute's too),
+    ``row_parallel_einsum.backward_calls`` their backwards."""
     mesh = rdist.active_mesh()
     n = rdist.mesh_shape(mesh).get("model") if mesh is not None else None
     F = u.shape[-1]
     if not perf().bf16_rowparallel or n is None or F % n or not u.is_cuda:
         return u @ w
-    import torch.distributed as dist
-
-    rdist.no_autograd("row_parallel_einsum", u, w)
     row_parallel_einsum.mesh_calls += 1
-    f = rdist.shard_slice(mesh, "model", F)
-    y = (u[..., f] @ w[f]).to(u.dtype)
-    B, T, D = y.shape
-    if D % n:
-        raise ValueError(f"row_parallel_einsum: output dim {D} does not split over {n} model ranks")
-    group = mesh.get_group("model")
-    chunks = y.reshape(B * T, n, D // n).transpose(0, 1).contiguous()  # (n, B·T, D/n)
-    part = torch.empty_like(chunks[0])
-    dist.reduce_scatter_tensor(part, chunks, group=group)
-    dist.all_gather_into_tensor(chunks, part, group=group)
-    return chunks.transpose(0, 1).reshape(B, T, D)
+    return RowParallel.apply(u, w, mesh)
+
+
+class RowParallel(torch.autograd.Function):
+    """V9's product on ``mesh``'s ``model`` ranks, each holding u and w
+    whole (every ``model`` rank computes the same values, the port's rule
+    for plain tensors): forward, rank m's slice f of F, ``u[..., f] @ w[f]``
+    in u's dtype, summed over the ranks by a reduce-scatter and an
+    all-gather. Backward: the all-gather's gradient is this rank's slice of
+    dY and the reduce-scatter's the all-gather of those slices, which is dY
+    itself, the same on every ``model`` rank; so dU[..., f] = dY·w[f]ᵀ and
+    dW[f] = u[..., f]ᵀ·dY, each the rank's slice, gathered back over the
+    ``model`` ranks to the whole (the value every rank holds)."""
+
+    @staticmethod
+    def forward(ctx, u, w, mesh):
+        import torch.distributed as dist
+
+        n = rdist.mesh_shape(mesh)["model"]
+        f = rdist.shard_slice(mesh, "model", u.shape[-1])
+        ctx.save_for_backward(u, w)
+        ctx.mesh, ctx.f = mesh, f
+        y = (u[..., f] @ w[f]).to(u.dtype)
+        B, T, D = y.shape
+        if D % n:
+            raise ValueError(f"row_parallel_einsum: output dim {D} does not split over {n} model ranks")
+        group = mesh.get_group("model")
+        chunks = y.reshape(B * T, n, D // n).transpose(0, 1).contiguous()  # (n, B·T, D/n)
+        flat = chunks.view(n * B * T, D // n)  # rank i's chunk in rows i·B·T.. (gloo reads dim 0)
+        part = torch.empty_like(chunks[0])
+        dist.reduce_scatter_tensor(part, flat, group=group)
+        dist.all_gather_into_tensor(flat, part, group=group)
+        return chunks.transpose(0, 1).reshape(B, T, D)
+
+    @staticmethod
+    def backward(ctx, dy):
+        row_parallel_einsum.backward_calls += 1
+        u, w = ctx.saved_tensors
+        mesh, f = ctx.mesh, ctx.f
+        du = rdist.all_gather_axes(dy @ w[f].t().to(dy.dtype), mesh, "model", u.ndim - 1)
+        uf = u[..., f].reshape(-1, f.stop - f.start)
+        dw = rdist.all_gather_axes(uf.t() @ dy.reshape(-1, dy.shape[-1]).to(uf.dtype), mesh, "model", 0)
+        return du.to(u.dtype), dw.to(w.dtype), None
 
 
 row_parallel_einsum.mesh_calls = 0
+row_parallel_einsum.backward_calls = 0
 
 
 def apply_mlp(lp: dict, h: torch.Tensor, cfg) -> torch.Tensor:
@@ -290,8 +321,12 @@ class TransformerLM(nn.Module):
             lp["ln2"] = view(self.ln2)
         return lp
 
-    def _out_embed(self) -> torch.Tensor:
-        return self.embed if self.cfg.tie_embeddings else self.out_embed
+    def _out_embed(self, embed=None) -> torch.Tensor:
+        """The output projection: when tied, the input embedding, or
+        ``embed``, that already gathered."""
+        if not self.cfg.tie_embeddings:
+            return rdist.gather_param(self.out_embed)
+        return rdist.gather_param(self.embed) if embed is None else embed
 
     def _ffn(self, lp, h):
         """The FFN: (output, the layer's aux loss, None but in the MoE FFN)."""
@@ -311,6 +346,11 @@ class TransformerLM(nn.Module):
         mo, aux = self._ffn(lp, norm(x, lp["ln2"], cfg.rms_eps, cfg.norm_type))
         return x + (checkpoint_name(mo, "mlp_out") if named else mo), aux
 
+    def _layer_block(self, l, x, sin, cos, q_chunk):
+        """Layer ``l``'s parameters taken, then :meth:`_block` (see
+        :func:`~.common.run_layer`)."""
+        return self._block(self._layer(l), x, sin, cos, q_chunk)
+
     def _block(self, lp, x, sin, cos, q_chunk):
         """One layer over the whole sequence: (x, aux, k, v)."""
         B, T, _ = x.shape
@@ -324,31 +364,28 @@ class TransformerLM(nn.Module):
         return *self._block_tail(lp, x, h, ao, named), k, v
 
     # -- forward (prefill) -----------------------------------------------------
-    def _trunk(self, tokens, vision_embeds, q_chunk, kv_sink=None, remat=False):
+    def _trunk(self, tokens, vision_embeds, q_chunk, kv_sink=None, remat=False, embed=None):
+        """``embed``: the input embedding already gathered, else gathered here."""
         cfg = self.cfg
         dtype = self.compute_dtype
         T = tokens.shape[1]
-        x = embed_tokens(self.embed, tokens, dtype)
+        x = embed_tokens(rdist.gather_param(self.embed) if embed is None else embed, tokens, dtype)
         if vision_embeds is not None:
             x[:, : vision_embeds.shape[1]] = vision_embeds.to(dtype)
         if cfg.pos_emb == "learned":
-            x = x + self.pos_embed[:T].to(dtype)
+            x = x + rdist.gather_param(self.pos_embed)[:T].to(dtype)
         sin, cos = rope_tables(torch.arange(T, device=tokens.device), cfg.resolved_head_dim, cfg.rope_theta)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        # under remat nothing is saved inside a layer (V1: but attn_out and mlp_out)
+        kw = {"context_fn": lambda: save_only_these_names("attn_out", "mlp_out")} \
+            if remat and perf().save_dot_outputs else {}
         for l in range(cfg.n_layers):
-            lp = self._layer(l)
-            if remat:  # nothing saved inside a layer (V1: but attn_out and mlp_out)
-                kw = {"context_fn": lambda: save_only_these_names("attn_out", "mlp_out")} \
-                    if perf().save_dot_outputs else {}
-                x, aux_l, k, v = checkpoint(under_current_flags(self._block), lp, x, sin, cos, q_chunk,
-                                            use_reentrant=False, preserve_rng_state=False, **kw)
-            else:
-                x, aux_l, k, v = self._block(lp, x, sin, cos, q_chunk)
+            x, aux_l, k, v = run_layer(self._layer_block, remat, l, x, sin, cos, q_chunk, **kw)
             if aux_l is not None:
                 aux = aux + aux_l
             if kv_sink is not None:
                 kv_sink(l, k, v)
-        return norm(x, self.ln_f, cfg.rms_eps, cfg.norm_type), aux
+        return norm(x, rdist.gather_param(self.ln_f), cfg.rms_eps, cfg.norm_type), aux
 
     def hidden_states(self, tokens, vision_embeds=None, *, remat: bool = False, collect_kv: bool = False,
                       q_chunk: int = 2048):
@@ -360,8 +397,9 @@ class TransformerLM(nn.Module):
         return x, aux, stacked
 
     def forward(self, tokens, vision_embeds=None, *, remat: bool = False, q_chunk: int = 2048):
-        x, aux, _ = self.hidden_states(tokens, vision_embeds, remat=remat, q_chunk=q_chunk)
-        return logits_from_hidden(x, self._out_embed(), self.cfg.vocab), aux
+        embed = rdist.gather_param(self.embed)  # once: the tied head's too
+        x, aux = self._trunk(tokens, vision_embeds, q_chunk, remat=remat, embed=embed)
+        return logits_from_hidden(x, self._out_embed(embed), self.cfg.vocab), aux
 
     def loss(self, batch: dict, *, remat: bool = True, q_chunk: int = 2048):
         """``batch``: tokens and labels (B,T), optional mask and vision_embeds.

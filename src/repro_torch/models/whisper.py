@@ -30,11 +30,10 @@ import math
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch import dist as rdist
 from repro_torch.dist import Axes
-from repro_torch.dist.perf import under_current_flags
 from . import attention as attn_lib
 from .common import (
     embed_axes,
@@ -43,6 +42,7 @@ from .common import (
     layer_view,
     layernorm,
     logits_from_hidden,
+    run_layer,
     softmax_cross_entropy,
 )
 from .transformer import (CACHE_DTYPE, apply_mlp, attn_axes, attn_params, init_attn_, init_mlp_, mlp_axes, mlp_params,
@@ -111,14 +111,6 @@ class _Stack(nn.Module):
         lp = {name: layer_view(t, l) for name, t in self.named_parameters(recurse=False)}
         lp.update({name: {k: layer_view(t, l) for k, t in leaves.items()} for name, leaves in self.named_children()})
         return lp
-
-
-def _run(fn, remat: bool, *args):
-    """``fn(*args)``; with ``remat`` nothing inside is saved and it runs again
-    in the backward."""
-    if remat:
-        return checkpoint(under_current_flags(fn), *args, use_reentrant=False, preserve_rng_state=False)
-    return fn(*args)
 
 
 class WhisperModel(nn.Module):
@@ -199,6 +191,11 @@ class WhisperModel(nn.Module):
         x = x + ao.reshape(B, T, -1) @ lp["attn"]["wo"].to(x.dtype)
         return x + apply_mlp(lp["mlp"], layernorm(x, lp["ln2"], cfg.rms_eps), cfg)
 
+    def _enc_layer_at(self, l, x, q_chunk):
+        """Encoder layer ``l``'s parameters taken, then :meth:`_enc_layer`
+        (see :func:`~.common.run_layer`)."""
+        return self._enc_layer(self.enc.layer(l), x, q_chunk)
+
     def encode(self, enc_embeds, *, remat: bool = False, q_chunk: int = 2048) -> torch.Tensor:
         """Frame embeddings (B, S, d) → the encoder's output (B, S, d) in
         the compute dtype."""
@@ -207,8 +204,8 @@ class WhisperModel(nn.Module):
         x = enc_embeds.to(dtype)
         x = x + sinusoid_pos(x.shape[1], cfg.d_model, x.device).to(dtype)
         for l in range(cfg.enc_layers):
-            x = _run(self._enc_layer, remat, self.enc.layer(l), x, q_chunk)
-        return layernorm(x, self.enc_ln_f, cfg.rms_eps)
+            x = run_layer(self._enc_layer_at, remat, l, x, q_chunk)
+        return layernorm(x, rdist.gather_param(self.enc_ln_f), cfg.rms_eps)
 
     # -- decoder -------------------------------------------------------------
     def _cross_kv(self, lp, enc_out):
@@ -253,31 +250,39 @@ class WhisperModel(nn.Module):
         x = x + apply_mlp(lp["mlp"], layernorm(x, lp["ln3"], cfg.rms_eps), cfg)
         return x, k, v, ck, cv
 
-    def _trunk(self, tokens, enc_embeds, q_chunk, sink=None, remat=False):
+    def _dec_layer_at(self, l, x, enc_out, q_chunk):
+        """Decoder layer ``l``'s parameters taken, then :meth:`_dec_layer`
+        (see :func:`~.common.run_layer`)."""
+        return self._dec_layer(self.dec.layer(l), x, enc_out, q_chunk)
+
+    def _trunk(self, tokens, enc_embeds, q_chunk, sink=None, remat=False, embed=None):
         """Encoder (zero frames in the compute dtype when ``enc_embeds`` is
         None, as the reference), then the decoder over ``tokens`` from
         position 0: the final hidden states (B, T, d). ``sink(l, k, v, ck,
-        cv)`` receives each decoder layer's self and cross K/V."""
+        cv)`` receives each decoder layer's self and cross K/V. ``embed``:
+        the token embedding already gathered, else gathered here."""
         cfg = self.cfg
         B, T = tokens.shape
         dtype = self.compute_dtype
         if enc_embeds is None:
             enc_embeds = torch.zeros((B, cfg.enc_len, cfg.d_model), dtype=dtype, device=self.device)
         enc_out = self.encode(enc_embeds, remat=remat, q_chunk=q_chunk)
-        x = embed_tokens(self.embed, tokens, dtype) + self.dec_pos[:T].to(dtype)
+        x = embed_tokens(rdist.gather_param(self.embed) if embed is None else embed, tokens, dtype)
+        x = x + rdist.gather_param(self.dec_pos)[:T].to(dtype)
         for l in range(cfg.n_layers):
-            x, k, v, ck, cv = _run(self._dec_layer, remat, self.dec.layer(l), x, enc_out, q_chunk)
+            x, k, v, ck, cv = run_layer(self._dec_layer_at, remat, l, x, enc_out, q_chunk)
             if sink is not None:
                 sink(l, k, v, ck, cv)
-        return layernorm(x, self.dec_ln_f, cfg.rms_eps)
+        return layernorm(x, rdist.gather_param(self.dec_ln_f), cfg.rms_eps)
 
     # -- public api ------------------------------------------------------------
     def forward(self, tokens, enc_embeds=None, *, remat: bool = False, q_chunk: int = 2048):
         """Logits (B, T, padded vocab) fp32, and a zero aux loss (the
         reference's second output)."""
-        x = self._trunk(tokens, enc_embeds, q_chunk, remat=remat)
+        embed = rdist.gather_param(self.embed)  # once: the tied head's too
+        x = self._trunk(tokens, enc_embeds, q_chunk, remat=remat, embed=embed)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return logits_from_hidden(x, self.embed, self.cfg.vocab), aux
+        return logits_from_hidden(x, embed, self.cfg.vocab), aux
 
     def loss(self, batch: dict, *, remat: bool = True, q_chunk: int = 2048):
         """``batch``: tokens and labels (B, T), optional mask and

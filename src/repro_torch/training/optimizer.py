@@ -12,6 +12,14 @@ Updates happen in place: parameters, moments and gradients are modified,
 and no temporary the size of the whole model is made. AdamW works on one
 leading slice of a stacked ``(L, …)`` leaf at a time, so its temporaries
 are the size of one layer's tensor.
+
+A state placed on a mesh (the trainer under a mesh: parameters, gradients
+and moments DTensors of one placement per leaf) is updated shard by shard
+on each rank's local tensors. What reduces over a whole leaf reduces over
+its shards: the global norm sums each shard's squares once (a replica is
+not counted again), and Adafactor's row, column and RMS means all-reduce
+over the mesh dims that shard the reduced dims. Whether a leaf decays or is
+factored is decided on its global shape.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch import dist as rdist
 from repro_torch.dist import Axes
 from repro_torch.tree import leaves, tree_map
 
@@ -51,10 +60,13 @@ def lr_schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """√(Σ‖t‖²) over the leaves in order, in fp32, with no copy of a leaf."""
+    """√(Σ‖t‖²) over the leaves in order, in fp32, with no copy of a leaf; a
+    DTensor leaf's ‖t‖² summed over its shards."""
+    ts = leaves(tensors)
+    squares = [torch.linalg.vector_norm(rdist.local(t), dtype=torch.float32).square() for t in ts]
     total = 0
-    for t in leaves(tensors):
-        total = total + torch.linalg.vector_norm(t, dtype=torch.float32).square()
+    for sq in rdist.sum_over_shards(squares, ts):
+        total = total + sq
     return torch.sqrt(total)
 
 
@@ -65,7 +77,7 @@ def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
     gnorm = global_norm(grads)
     scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
     for g in leaves(grads):
-        g.mul_(scale.to(g.dtype))
+        rdist.local(g).mul_(scale.to(g.dtype))
     return gnorm
 
 
@@ -111,6 +123,7 @@ def adamw_update(cfg: OptimizerConfig, grads, opt_state: dict, params):
     lr_f = float(lr)
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(opt_state["m"]), leaves(opt_state["v"])):
         decay = p.ndim >= 2  # of the whole leaf: a stacked (L, d) norm decays, as in the reference
+        p, g, m, v = _locals(p, g, m, v)
         parts = zip(p, g, m, v) if p.ndim >= 3 else [(p, g, m, v)]
         for ps, gs, ms, vs in parts:
             _adamw_slice(ps, gs, ms, vs, lr_f, bc1, bc2, cfg, decay)
@@ -146,24 +159,32 @@ def adafactor_update(cfg: OptimizerConfig, grads, opt_state: dict, params):
     lr_f, eps1 = float(lr), cfg.epsilon1
     states: list = []
     _collect_states(opt_state["f"], states)
-    for p, g, st in zip(leaves(params), leaves(grads), states):
+    for p_, g, st in zip(leaves(params), leaves(grads), states):
+        mean = _whole_mean(p_)
+        decay, numel = p_.ndim >= 2, p_.numel()
+        p, g = _locals(p_, g)
         g = g.float()
         g2 = g.square().add_(eps1)
         if "vr" in st:
-            st["vr"].mul_(beta2).add_(g2.mean(dim=-1), alpha=1 - beta2)
-            st["vc"].mul_(beta2).add_(g2.mean(dim=-2), alpha=1 - beta2)
-            vr, vc = st["vr"], st["vc"]
+            _check_factors(p_, st)
+            vr, vc = _locals(st["vr"], st["vc"])
+            vr.mul_(beta2).add_(mean(g2, -1), alpha=1 - beta2)
+            vc.mul_(beta2).add_(mean(g2, -2), alpha=1 - beta2)
             denom = torch.sqrt(vr[..., None] * vc[..., None, :]
-                               / torch.clamp(vr.mean(dim=-1, keepdim=True)[..., None], min=eps1))
+                               / torch.clamp(mean(vr, -1, keepdim=True, leaf_dim=-2)[..., None], min=eps1))
             step = g / torch.clamp(denom, min=eps1)
         else:
-            st["v"].mul_(beta2).add_(g2, alpha=1 - beta2)
-            step = g / (torch.sqrt(st["v"]) + 1e-12)
+            v = rdist.local(st["v"])
+            v.mul_(beta2).add_(g2, alpha=1 - beta2)
+            step = g / (torch.sqrt(v) + 1e-12)
         del g2
-        rms = torch.sqrt(step.square().mean() + 1e-12)
+        sq = step.square()
+        rms = torch.sqrt(sq.mean() + 1e-12) if not rdist.is_dtensor(p_) else \
+            torch.sqrt(rdist.sum_over_shards([sq.sum()], [p_])[0] / numel + 1e-12)
+        del sq
         step.div_(torch.clamp(rms, min=1.0))
         pf = p.float()
-        if p.ndim >= 2:
+        if decay:
             step.add_(pf, alpha=cfg.weight_decay)
         step.mul_(lr_f)
         if p.dtype == torch.float32:
@@ -172,6 +193,41 @@ def adafactor_update(cfg: OptimizerConfig, grads, opt_state: dict, params):
             p.copy_(pf - step)
     opt_state["count"] = count
     return params, opt_state, lr
+
+
+def _locals(*ts):
+    return tuple(rdist.local(t) for t in ts)
+
+
+def _whole_mean(p):
+    """``mean(x, dim)`` of a tensor x on ``p``'s local shard over the whole
+    leaf: the local mean averaged over the ranks of the mesh dims that shard
+    dim ``leaf_dim`` of ``p`` (by default ``dim``; equal shards)."""
+    spec = rdist.placement_spec(p) if rdist.is_dtensor(p) else None
+
+    def mean(x, dim, keepdim=False, leaf_dim=None):
+        m = x.mean(dim=dim, keepdim=keepdim)
+        axes = spec[dim if leaf_dim is None else leaf_dim] if spec else ()
+        if axes:
+            import torch.distributed as dist
+
+            mesh = p.device_mesh
+            m = rdist.all_reduce_axes(m, mesh, axes, dist.ReduceOp.SUM) / rdist.axes_size(mesh, axes)
+        return m
+
+    return mean
+
+
+def _check_factors(p, st) -> None:
+    """A placed leaf's factors must be placed as its dims (``vr`` as all but
+    the last, ``vc`` as all but the second last), so that a rank's local
+    factors are those of its local block."""
+    if not rdist.is_dtensor(p):
+        return
+    spec = rdist.placement_spec(p)
+    got = (rdist.placement_spec(st["vr"]), rdist.placement_spec(st["vc"]))
+    if got != (spec[:-1], spec[:-2] + spec[-1:]):
+        raise ValueError(f"Adafactor: factors placed {got}, the leaf {spec}")
 
 
 def _collect_states(tree, out: list) -> None:

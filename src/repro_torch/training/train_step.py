@@ -7,6 +7,8 @@ parameter tree (:func:`repro_torch.convert.param_tree`, the ``nn.Parameter``
 objects, fp32 masters), the model casts to ``cfg.dtype`` inside. Gradient
 accumulation sums fp32 gradients over microbatches in the parameters'
 ``.grad`` and divides by their number, then the step clips and updates.
+Under a mesh the state is placed on it (:func:`place_state`) and each rank
+runs its rows of the batch (:func:`accumulate_grads`).
 
 ``abstract_params``/``abstract_state``/``abstract_cache`` build the same
 trees of meta-device tensors: shapes and dtypes, no memory.
@@ -17,7 +19,8 @@ from dataclasses import dataclass, field
 
 import torch
 
-from repro_torch.convert import param_tree
+from repro_torch import dist as rdist
+from repro_torch.convert import flatten, param_tree
 from repro_torch.dist import Axes
 from repro_torch.models import build_model
 from repro_torch.tree import leaves
@@ -51,31 +54,98 @@ def state_axes(model, opt_cfg: OptimizerConfig, params_shape):
     return {"params": pax, "opt": opt_state_axes(opt_cfg, pax, shapes), "step": Axes()}
 
 
-def make_train_step(model, train_cfg: TrainConfig):
-    opt_cfg = train_cfg.opt
+def place_state(model, state: dict, opt_cfg: OptimizerConfig, mesh) -> dict:
+    """``state`` (plain tensors, every rank the same values) placed on
+    ``mesh`` by :func:`state_axes`, as the reference places its state by
+    ``tree_shardings``: each parameter becomes a DTensor ``nn.Parameter`` of
+    ``model`` (the model computes on them through
+    :func:`repro_torch.dist.gather_param`), each optimizer moment a DTensor.
+    The counters (``step``, ``opt['count']``) stay plain 0-d tensors on the
+    CPU, the same on every rank (the reference's replicated scalars)."""
+    from torch import nn
 
-    def backward(batch) -> dict:
-        loss, metrics = model.loss(batch, remat=train_cfg.remat, q_chunk=train_cfg.q_chunk)
+    axes = state_axes(model, opt_cfg, state)
+    placed = rdist.distribute_tree(state["params"], mesh, axes["params"])
+    for name, t in flatten(placed).items():
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner)
+        param = nn.Parameter(t, requires_grad=True)
+        if isinstance(mod, nn.ParameterDict):
+            mod[leaf] = param
+        else:
+            setattr(mod, leaf, param)
+    opt = {k: (v if k == "count" else rdist.distribute_tree(v, mesh, axes["opt"][k])) for k, v in state["opt"].items()}
+    return {"params": param_tree(model), "opt": opt, "step": state["step"]}
+
+
+def accumulate_grads(model, params: list, batch: dict, train_cfg: TrainConfig) -> dict:
+    """The gradients of the loss over ``batch`` (the global batch), fp32
+    and summed over ``train_cfg.accum_steps`` microbatches then divided by
+    their number, left in the parameters' ``.grad``; returns the metrics.
+
+    Under a mesh (:func:`repro_torch.dist.active_mesh`) the parameters must
+    be placed on it (:func:`place_state`). Each rank then runs its shard of
+    each global microbatch (microbatch i is the global rows [i·B/A,
+    (i+1)·B/A), split over the ``batch`` rule's mesh dims) under
+    :func:`repro_torch.dist.batch_split`; the gradients come back averaged
+    over those ranks and cut to each rank's shard, and the metrics are
+    averaged over them, so every rank returns the global values."""
+    mesh = rdist.active_mesh()
+    if mesh is not None:
+        stray = [i for i, p in enumerate(params) if not (rdist.is_dtensor(p) and p.device_mesh == mesh)]
+        if stray:
+            raise ValueError(f"train step under a mesh: {len(stray)} parameters are not placed on it (place_state)")
+    for p in params:
+        if p.grad is not None:
+            p.grad.zero_()
+    A = train_cfg.accum_steps
+
+    def backward(mb) -> dict:
+        loss, metrics = model.loss(mb, remat=train_cfg.remat, q_chunk=train_cfg.q_chunk)
         loss.backward()
         return {k: v.detach() for k, v in metrics.items()}
 
-    def train_step(state: dict, batch: dict):
-        params = leaves(state["params"])
+    n = batch["tokens"].shape[0] // max(A, 1)
+    if mesh is None:
+        run = backward
+    else:
+        bspec = rdist.logical_to_spec(("batch",), (n,), mesh)[0]
+        rows = rdist.shard_slice(mesh, bspec, n)
+
+        def run(mb) -> dict:
+            with rdist.batch_split(bspec):
+                return backward({k: v[rows] for k, v in mb.items()})
+
+    if A <= 1:
+        metrics = run(batch)
+    else:
+        loss_sum = 0.0
+        for i in range(A):
+            loss_sum = loss_sum + run({k: v[i * n:(i + 1) * n] for k, v in batch.items()})["loss"]
         for p in params:
             if p.grad is not None:
-                p.grad.zero_()
-        A = train_cfg.accum_steps
-        if A <= 1:
-            metrics = backward(batch)
-        else:
-            n = batch["tokens"].shape[0] // A
-            loss_sum = 0.0
-            for i in range(A):
-                loss_sum = loss_sum + backward({k: v[i * n:(i + 1) * n] for k, v in batch.items()})["loss"]
-            for p in params:
-                if p.grad is not None:
-                    p.grad.div_(A)
-            metrics = {"loss": loss_sum / A}
+                rdist.local(p.grad).div_(A)
+        metrics = {"loss": loss_sum / A}
+    if mesh is not None and rdist.entry_axes(bspec):  # each rank's estimate → their mean, the global value
+        import torch.distributed as dist
+
+        keys = sorted(metrics)
+        v = rdist.all_reduce_axes(torch.stack([metrics[k].float() for k in keys]), mesh, bspec, dist.ReduceOp.SUM)
+        v = v / rdist.axes_size(mesh, rdist.entry_axes(bspec))
+        metrics = dict(zip(keys, v.unbind()))
+    return metrics
+
+
+def make_train_step(model, train_cfg: TrainConfig):
+    """``train_step(state, batch) -> (state, metrics)``: gradients
+    (:func:`accumulate_grads`), clipping by the global norm, the optimizer,
+    the step counter. Under a mesh (the ambient one, the state placed on it
+    by :func:`place_state`) ``batch`` is the global batch on every rank."""
+    opt_cfg = train_cfg.opt
+
+    def train_step(state: dict, batch: dict):
+        params = leaves(state["params"])
+        metrics = accumulate_grads(model, params, batch, train_cfg)
         for p in params:  # a parameter that no loss reaches has a zero gradient
             if p.grad is None:
                 p.grad = torch.zeros_like(p)

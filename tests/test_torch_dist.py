@@ -217,14 +217,65 @@ def test_v1_v4_v6_loss_and_gradients_equal_the_flag_off(arch, dtype, flag):
         assert all(torch.equal(grads[n], base[n]) for n in base)
 
 
-def test_explicit_paths_refuse_autograd():
-    cfg = get_config("qwen2-moe-a2.7b").reduced(dtype="float32")
-    model = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0)).requires_grad_()
-    x = torch.zeros(4, 2, cfg.d_model)
-    from repro_torch.models.moe import moe_ffn_local
+@pytest.fixture
+def one_rank(tmp_path):
+    """A 1-rank gloo group (file rendezvous) and its (1, 1) mesh, destroyed after."""
+    import torch.distributed as dist
 
-    with rdist.mesh_context(FakeMesh(data=2, model=2)), pytest.raises(RuntimeError, match="no backward"):
-        moe_ffn_local(model._layer(0)["moe"], x, cfg)
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0, world_size=1)
+    try:
+        yield make_host_mesh((1, 1), ("data", "model"), "cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("path", ["V3 refuses", "V2 gives gradients", "V9 gives gradients"])
+def test_explicit_paths_under_autograd(one_rank, path):
+    """V3 (decode over a placed cache) stays forward only and raises under
+    autograd; V2 and V9 have a backward: at one rank their gradients are
+    the plain path's (4 ranks: ``test_v2_gradients_match_reference``,
+    ``test_v9_function_gradients_match_the_plain_product``)."""
+    from repro_torch.models.moe import _moe_tokens, moe_ffn_local
+    from repro_torch.models.transformer import RowParallel
+
+    mesh, g = one_rank, torch.Generator().manual_seed(0)
+    if path == "V3 refuses":
+        q, kn, vn = (torch.randn(2, 1, h, 8, generator=g) for h in (8, 4, 4))
+        kc = rdist.distribute_tree(torch.zeros(2, 16, 4, 8), mesh, rdist.Axes("cache_batch", "kv_seq", "act_kv", None))
+        q.requires_grad_()
+        with rdist.mesh_context(mesh), pytest.raises(RuntimeError, match="no backward"):
+            attention.sharded_decode_update_attend(q, kc, kc.clone(), kn, vn, 3)
+        return
+    if path == "V2 gives gradients":
+        cfg = get_config("qwen2-moe-a2.7b").reduced(dtype="float32")
+        model = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0)).requires_grad_()
+        lp = {k: v[0].detach().clone().requires_grad_() for k, v in model.moe.items()}
+        x = torch.randn(4, 2, cfg.d_model, generator=g, requires_grad=True)
+
+        def run(fn):
+            y, aux = fn(lp, x, cfg)
+            (y.square().sum() + aux).backward()
+            grads = [t.grad.clone() for t in (x, *lp.values())]
+            for t in (x, *lp.values()):
+                t.grad = None
+            return grads
+
+        want = run(_moe_tokens)
+        with rdist.mesh_context(mesh):
+            got = run(moe_ffn_local)
+    else:
+        u = torch.randn(4, 8, 64, generator=g, requires_grad=True)
+        w = torch.randn(64, 32, generator=g, requires_grad=True)
+        dy = torch.randn(4, 8, 32, generator=g)
+        (u @ w).backward(dy)
+        want = [u.grad.clone(), w.grad.clone()]
+        u.grad = w.grad = None
+        RowParallel.apply(u, w, mesh).backward(dy)
+        got = [u.grad, w.grad]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=TOL, rtol=0)
 
 
 def test_sharded_decode_refuses_a_plain_cache_that_model_splits():
@@ -329,6 +380,11 @@ REF = textwrap.dedent("""
         loss, _ = jax.jit(lambda p, b: model.loss(p, b, remat=False))(params, {"tokens": tokens, "labels": tokens})
         y, aux = jax.jit(lambda lp, x: moe_ffn(lp, x, cfg))(lp, jnp.asarray(inp["moe_x"]))
     out.update(v2_loss=np.asarray(loss), v2_y=np.asarray(y), v2_aux=np.asarray(aux))
+    batch = {"tokens": tokens, "labels": tokens}
+    with perf_context(PerfConfig(moe_local_dispatch=True)), mesh_context(mesh):
+        (loss, _), grads = jax.jit(jax.value_and_grad(lambda p: model.loss(p, batch, remat=True), has_aux=True))(params)
+    out["v2_grad_loss"] = np.asarray(loss)
+    out.update({"v2_grad|" + k: v for k, v in flat(grads).items()})
     np.savez(os.path.join(d, "ref.npz"), **out)
 """) % dict(cases=V3_CASES, pads=PADS, steps=STEPS)
 
@@ -429,6 +485,27 @@ PORT = textwrap.dedent("""
             loss, _ = model.loss({"tokens": tokens, "labels": tokens}, remat=False)
             y, aux = moe_ffn(model._layer(0)["moe"], t(inp["moe_x"]), model.cfg)
         out.update(v2_loss=loss.numpy(), v2_y=y.numpy(), v2_aux=aux.numpy())
+
+    # V2's gradients: the train step's, its rows of the batch on each data rank
+    from repro_torch.models.transformer import RowParallel
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_step import TrainConfig, accumulate_grads, init_state, place_state
+    from repro_torch.tree import leaves
+    opt = OptimizerConfig()
+    state = place_state(model, init_state(model, None, opt), opt, mesh)
+    with perf_context(PerfConfig(moe_local_dispatch=True)), rdist.mesh_context(mesh):
+        metrics = accumulate_grads(model, leaves(state["params"]), {"tokens": tokens, "labels": tokens}, TrainConfig())
+    out["v2_grad_loss"] = metrics["loss"].numpy()
+    out.update({"v2_grad|" + n: p.grad.full_tensor().numpy() for n, p in model.named_parameters()})
+    # V9's Function on fp32 CPU tensors, F split over the model ranks
+    u, w = t(inp["v9_u"]).requires_grad_(), t(inp["v9_w"]).requires_grad_()
+    y = RowParallel.apply(u, w, mesh)
+    y.backward(t(inp["v9_dy"]))
+    out.update(v9_y=y.detach().numpy(), v9_du=u.grad.numpy(), v9_dw=w.grad.numpy())
+    u, w = t(inp["v9_u"]).requires_grad_(), t(inp["v9_w"]).requires_grad_()
+    y = u @ w  # the plain product
+    y.backward(t(inp["v9_dy"]))
+    out.update(plain_y=y.detach().numpy(), plain_du=u.grad.numpy(), plain_dw=w.grad.numpy())
     np.savez(os.path.join(d, f"port{rank}.npz"), **out)
     if rank == 0:
         with open(os.path.join(d, "port_specs.json"), "w") as f:
@@ -452,7 +529,8 @@ def runs(tmp_path_factory):
     inputs = {"q": rng.normal(size=(B, 1, H, D)), "k_new": rng.normal(size=(B, 1, K, D)),
               "v_new": rng.normal(size=(B, 1, K, D)),
               "tokens": rng.integers(0, 256, size=(B, T_PROMPT)), "moe_tokens": rng.integers(0, 256, size=(4, 32)),
-              "moe_x": rng.normal(size=(4, 32, 64))}
+              "moe_x": rng.normal(size=(4, 32, 64)), "v9_u": rng.normal(size=(4, 8, 64)),
+              "v9_w": rng.normal(size=(64, 32)), "v9_dy": rng.normal(size=(4, 8, 32))}
     for case, S, _ in V3_CASES:
         inputs["k_" + case], inputs["v_" + case] = rng.normal(size=(B, S, K, D)), rng.normal(size=(B, S, K, D))
     np.savez(d / "inputs.npz", **{k: v.astype(np.int32 if v.dtype.kind == "i" else np.float32)
@@ -561,6 +639,31 @@ def test_moe_local_dispatch_matches_reference(runs):
     ref, ports, _, _ = runs
     for key in ("v2_y", "v2_aux", "v2_loss"):
         np.testing.assert_allclose(_same_on_every_rank(ports, key), ref[key], atol=TOL, rtol=0)
+
+
+def test_v2_gradients_match_reference(runs):
+    """V2 in the train step on the (2, 2) mesh: each data rank runs its 2
+    sequences, routes them with its own capacity, and averages the aux loss
+    (its backward the same mean); the loss and every parameter's gradient,
+    gathered, against ``jax.value_and_grad`` of the reference's loss under
+    its V2 (remat on in both)."""
+    ref, ports, _, _ = runs
+    np.testing.assert_allclose(_same_on_every_rank(ports, "v2_grad_loss"), ref["v2_grad_loss"], atol=TOL, rtol=0)
+    keys = [k for k in ref if k.startswith("v2_grad|")]
+    assert keys and set(keys) == {k for k in ports[0] if k.startswith("v2_grad|")}
+    for k in keys:
+        np.testing.assert_allclose(_same_on_every_rank(ports, k), ref[k], atol=TOL, rtol=0, err_msg=k)
+
+
+def test_v9_function_gradients_match_the_plain_product(runs):
+    """V9's autograd Function called directly on the (2, 2) mesh with fp32
+    CPU tensors (each ``model`` rank multiplies its half of F; the wrapper
+    takes this path on CUDA tensors only): y, dU and dW against ``u @ w``
+    and its autograd gradients."""
+    _, ports, _, _ = runs
+    for key in ("y", "du", "dw"):
+        np.testing.assert_allclose(_same_on_every_rank(ports, "v9_" + key), ports[0]["plain_" + key], atol=TOL,
+                                   rtol=0, err_msg=key)
 
 
 def test_placements_on_a_gloo_mesh_match_reference(runs):

@@ -992,6 +992,53 @@ def test_decode_under_the_mesh_equals_no_mesh(cuda, nccl_mesh, arch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-1b-a400m"])
+def test_trainer_under_the_mesh_equals_no_mesh(cuda, nccl_mesh, arch):
+    """``Trainer(mesh=...)`` on the (1, 1) NCCL mesh, every PerfConfig flag
+    on: 2 steps of a reduced model (fp32 masters, bf16 compute, 2
+    microbatches) give the losses, grad norms and state of the trainer
+    without a mesh: every leaf bit-equal but the tied embedding and its
+    moments, those and the metrics within 1e-6 of their largest |value|
+    (fp32 sums that may run in another order; a missing or wrong update
+    exceeds it by orders). The state is placed (DTensor parameters on the
+    card); V9 runs forward and backward through NCCL at the one rank, V2
+    routes its one data shard."""
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    cfg = get_config(arch).reduced(dtype="bfloat16")
+    tcfg = TrainerConfig(steps=2, global_batch=4, seq_len=64, log_every=1000,
+                         train=TrainConfig(opt=OptimizerConfig(warmup_steps=1), accum_steps=2))
+    runs = {}
+    for on_mesh in (False, True):
+        transformer.row_parallel_einsum.mesh_calls = transformer.row_parallel_einsum.backward_calls = 0
+        moe.moe_ffn_local.mesh_calls = 0
+        with perf_context(ALL_FLAGS):
+            trainer = Trainer(cfg, tcfg, device=cuda, mesh=nccl_mesh if on_mesh else None)
+            res = trainer.run()
+        state = {p: (x.full_tensor() if rdist.is_dtensor(x) else x).detach() for p, x in
+                 leaves_with_paths(trainer.state)}
+        runs[on_mesh] = (res["metrics"], state)
+        trainer.close()
+    assert rdist.is_dtensor(trainer.model.embed) and trainer.model.embed.device.type == "cuda"
+    row_parallel = cfg.n_layers * (1 if cfg.family == "moe" else 2)
+    assert transformer.row_parallel_einsum.mesh_calls == row_parallel * 2 * 2 * 2  # forward, recompute
+    assert transformer.row_parallel_einsum.backward_calls == row_parallel * 2 * 2
+    assert moe.moe_ffn_local.mesh_calls == (cfg.n_layers * 2 * 2 * 2 if cfg.family == "moe" else 0)
+    (plain, plain_state), (meshed, state) = runs[False], runs[True]
+
+    def within(got, want):
+        return (got.float() - want.float()).abs().max() <= 1e-6 * want.float().abs().max()
+
+    assert len(meshed) == len(plain)
+    for a, b in zip(meshed, plain):
+        for k in ("loss", "grad_norm"):
+            assert within(torch.tensor(a[k]), torch.tensor(b[k])), (a["step"], k, a[k], b[k])
+    assert state.keys() == plain_state.keys()
+    assert [p for p in state if not p.endswith("['embed']") and not torch.equal(state[p], plain_state[p])] == []
+    assert [p for p in state if p.endswith("['embed']") and not within(state[p], plain_state[p])] == []
+
+
+@pytest.mark.gpu
 def test_compressed_psum_on_card_bit_equal_cpu(cuda, nccl_mesh):
     """``compressed_psum`` on CUDA tensors through NCCL and on CPU tensors
     through gloo: the same bits, ragged sizes and an all-zero block."""

@@ -234,3 +234,47 @@ def test_codec_raises_on_cut_or_flipped_frames(lockstep):
                 assert ours == _theirs(flipped), (pos, bit)
                 agreed += 1
     assert raised > 0 and agreed > 0
+
+
+# ---------------------------------------------------------------------------
+# value before pointer on the replica
+# ---------------------------------------------------------------------------
+
+
+def test_follower_applies_no_pointer_before_its_value(tmp_path):
+    """A value fetch that misses (an async primary's value writer not yet on
+    disk, here a read fault on the replica's machine) stops the streaming
+    apply before that group: the replica's sequence, its reads and its own
+    WAL stay short of the pointer and of every group after it. A crash of
+    the replica there loses nothing it must keep; reopened and re-attached
+    once the fetch works again, it reads what the primary reads."""
+    renv = port_core.FaultInjectionEnv(seed=1)
+    rcfg = _cfg(port_core)
+    rcfg.env = renv
+    primary = port_core.DB.open(str(tmp_path / "p"), _cfg(port_core))
+    primary.put(b"small", b"x")
+    replica = port_replication.bootstrap_replica(primary, str(tmp_path / "r"), cfg=rcfg)
+    link = port_replication.attach(primary, replica)
+    primary.put(b"inline", b"y")
+    assert link.wait_caught_up(timeout=30)
+    held = replica._seq
+    renv.add_fault("read", path_substr=str(tmp_path / "p" / "bvalue"), count=None)
+    primary.put(b"big", b"v" * 5000)
+    primary.put(b"after", b"z")
+    assert not link.wait_caught_up(timeout=0.5)
+    assert replica._seq == held and replica.get(b"big") is None and replica.get(b"after") is None
+    assert replica.stats()["repl_value_fetch_misses"] > 0
+
+    link.detach()
+    with contextlib.redirect_stderr(io.StringIO()):
+        replica.close(crash=True)
+    renv.drop_unsynced()
+    renv.reset()
+    replica = port_core.DB(str(tmp_path / "r"), rcfg, role="replica")
+    assert replica._seq == held and replica.get(b"big") is None
+    link = port_replication.attach(primary, replica)
+    assert link.wait_caught_up(timeout=30)
+    assert list(replica.range()) == list(primary.range())
+    assert replica.get(b"big") == b"v" * 5000 and replica.get(b"after") == b"z"
+    replica.close()
+    primary.close()
