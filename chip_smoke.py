@@ -25,10 +25,14 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    qwen3-4b (attention, head_dim 128), recurrentgemma-9b (attention at
    head_dim 256, RG-LRU) and mamba2-1.3b (SSD), with times of kernel, plain
    version and the PyTorch library call where one exists (a yardstick only:
-   the port never calls it) beside the bound; flash also at the training
-   steps' calls (qwen3-4b: B 2, T 512, H 32, K 8, head_dim 128, causal;
-   recurrentgemma-9b: B 2, T 512, H 16, K 1, head_dim 256, window 2048) in
-   fp32 and bf16 (timed in bf16), the SSD kernels and the RG-LRU at the training
+   the port never calls it) beside the bound; flash also at every attention
+   call of phase 6b's steps, one microbatch (B 2, T 512;
+   ``grad_check.FLASH_TRAIN_CALLS``: qwen3-4b's H 32 on K 8 of 128,
+   recurrentgemma-9b's 16 on 1 of 256 with window 2048, granite-moe-1b-a400m's
+   16 on 8 of 64, qwen2-moe-a2.7b's 16 on 16 of 128, causal; whisper-small's
+   12 on 12 of 64: non-causal over the encoder's 1500 frames, cross-attention
+   of T 512 against S 1500, causal decoder self-attention) in fp32 and bf16
+   (timed in bf16), the SSD kernels and the RG-LRU at the training
    steps' microbatch (mamba2-1.3b: B 2, T 512, 64 heads of 64, state 128,
    chunk 256; recurrentgemma-9b: B 2, T 512, W 4096; bf16, timed); both
    attention kernels at the MoE configs' heads (granite-moe-1b-a400m:
@@ -94,35 +98,39 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    the gates and the aux loss, every leaf nonzero), and whisper-small at 2 +
    2 layers in fp32 (``ops.Attention``'s backward non-causal with T ≠ S in
    cross-attention; its key biases read over the model's scale, see
-   ``grad_check.compare``), then mamba2-1.3b at 2 layers (the SSD kernels'
+   ``grad_check.compare``), and qwen2-moe-a2.7b the same way in fp32 (its 4
+   shared experts and their gate, 60 routed experts, the qkv biases), then
+   mamba2-1.3b at 2 layers (the SSD kernels'
    forward, ``ops.SSDScan``'s backward) and recurrentgemma-9b at 3 (R, R,
    A: the RG-LRU kernel's forward, ``ops.RGLRU``'s backward, flash at hd
    256), gated in fp32 with every leaf nonzero (``A_log``, ``dt_bias``,
-   ``D``, the conv weights and ``lam`` among them) and recorded in bf16
-   (ROADMAP Queue C 11); (b) 4 steps through ``make_train_step``, fp32
+   ``D``, the conv weights and ``lam`` among them), mamba2-1.3b recorded in
+   bf16 (ROADMAP Queue C 11); (b) 4 steps through ``make_train_step``, fp32
    masters, bf16 compute, AdamW, remat, global batch 4 × 512 in 2
-   microbatches, the caching allocator's segments growing in place as
-   ``launch/train.py`` trains (``train_allocator``), every launch count set
-   to 0 just before each model: a
-   finite loss at every step, each kernel of the path launched once per
-   layer of its kind per forward and per recompute and no other kernel,
-   step ms, tokens/s and peak memory under 80 GB; qwen3-4b at full width
-   and depth (36 layers, 4.02 B parameters: flash 36 × 2 × 2 × 4 = 576,
-   first with the allocator's default fixed-size segments for comparison,
-   then as the training entry runs it and one more step counted as the dry
-   run counts), mamba2-1.3b at full
-   depth (48 layers, 1.34 B parameters: ``ssd_states`` = ``ssd_output`` =
-   768), recurrentgemma-9b at full width cut to 9 layers (3 R, R, A groups,
-   4.07 B parameters: ``rglru_scan`` 96, flash 48; its 38 layers need ~167
-   GB of state);
+   microbatches (whisper's with its 1500 frame embeddings a row), the
+   caching allocator's segments growing in place as ``launch/train.py``
+   trains (``train_allocator``), every launch count set to 0 just before
+   each model: a finite loss at every step, each kernel launched exactly as
+   ``cost.train_step_launches`` counts (once per layer of its kind per
+   forward and per remat recompute) and no other kernel, step ms, tokens/s
+   and peak allocated and reserved memory under 80 GB, and one more step
+   counted as the dry run counts; at full width (``TRAIN_RUNS``): qwen3-4b
+   at full depth (36 layers, 4.02 B parameters: flash 36 × 2 × 2 × 4 =
+   576), mamba2-1.3b at full depth (48 layers, 1.34 B: ``ssd_states`` =
+   ``ssd_output`` = 768), recurrentgemma-9b cut to 9 layers (3 R, R, A
+   groups, 4.07 B: ``rglru_scan`` 96, flash 48; its 38 layers need ~167 GB
+   of state), granite-moe-1b-a400m at full depth (24 layers, 1.33 B: flash
+   384), whisper-small at full depth (12 + 12 layers, 0.27 B: flash (12 +
+   2 × 12) × 16 = 576) and qwen2-moe-a2.7b cut to 6 layers (flash 96; its
+   24 layers need ~229 GB);
    dryrun: ``repro_torch.launch.dryrun`` over every arch × shape on both
-   production layouts on the meta device (every cell ok or skip; in a child
-   process without the card, started after phase 3, that runs beside the
-   card phases with 6d's harnesses), and the
-   qwen3-4b record at (b)'s shape on one rank held against (b): argument
-   bytes within 1% of what ``init_state`` allocated, the FLOPs of one step
-   meta and card exactly equal; argument + temp bytes over (b)'s peak and
-   ``train_mfu`` recorded; (c) in a child process with deterministic algorithms,
+   production layouts on the meta device (every cell ok or skip), and each
+   of (b)'s runs on one rank at its shape, both in a child process without
+   the card, started after phase 3, that runs beside the card phases with
+   6d's harnesses; each run's record held against (b): argument bytes
+   within 1% of what ``init_state`` allocated, the FLOPs of one step meta
+   and card exactly equal; the predicted total and its fit at 80 GB beside
+   (b)'s peak, and ``train_mfu``, recorded; (c) in a child process with deterministic algorithms,
    ``launch/train.py``'s trainer at full width and 1 layer, checkpointing
    into the port's BVLSM engine (``repro_torch.core``) in a fresh directory
    of the checkout (``build/ckpt``): 4 steps straight against 2, then a new
@@ -190,7 +198,7 @@ from repro_torch.models import attention, build_model, moe, transformer  # noqa:
 from repro_torch.training import compression  # noqa: E402
 from repro_torch.training.optimizer import OptimizerConfig  # noqa: E402
 from repro_torch.training.train_step import TrainConfig, init_state, make_train_step, state_axes  # noqa: E402
-from repro_torch.training.trainer import Trainer  # noqa: E402
+from repro_torch.training.trainer import Trainer, extra_fields  # noqa: E402
 from repro_torch.tree import leaves_with_paths  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 tensor-core
@@ -420,10 +428,8 @@ def phase_attention_kernels(rng) -> dict:
     flash, paged = attention_serving_shapes(rng, "qwen3-4b", 32, 8, 128)
     results["flash_attention"], results["paged_decode"] = flash, paged
     # phase 6b's flash calls (their own generators: the later checks keep their inputs)
-    results["flash_attention"]["training"] = flash_training(np.random.default_rng(1), "qwen3-4b",
-                                                            grad_check.TRAIN_SHAPE)
-    results["flash_attention"]["hd256 training"] = flash_training(np.random.default_rng(2), "recurrentgemma-9b",
-                                                                  grad_check.HD256_TRAIN_SHAPE)
+    for seed, (name, call) in enumerate(grad_check.FLASH_TRAIN_CALLS.items(), 1):
+        results["flash_attention"][training_key(name)] = flash_training(np.random.default_rng(seed), name, call)
 
     hd256 = phase_hd256_kernels(rng)
     results["flash_attention"]["hd256"] = hd256["flash_attention"]
@@ -435,26 +441,35 @@ def phase_attention_kernels(rng) -> dict:
     return results
 
 
-def flash_training(rng, arch: str, shape) -> dict:
-    """Flash at one microbatch of ``arch``'s phase-6b step, ``shape`` = (B,
-    T, H, K, hd, window), causal: checked against its plain version in fp32
-    (the CUDA-core kernel) and bf16 (the tensor-core one), then timed in
-    bf16, the step's compute dtype, beside its bound and SDPA."""
-    B, T, H, K, hd, window = shape
-    assert window is None or window >= T  # every causal pair: SDPA's is_causal computes the same
+def training_key(call: str) -> str:
+    """The kernels line's flash entry of a phase-6b call
+    (``grad_check.FLASH_TRAIN_CALLS``): "training" for qwen3-4b's, "hd256
+    training" for recurrentgemma-9b's, else "<call> training"."""
+    return {"qwen3-4b": "training", "recurrentgemma-9b": "hd256 training"}.get(call, f"{call} training")
+
+
+def flash_training(rng, name: str, call) -> dict:
+    """Flash at one microbatch of a phase-6b step's attention call ``name``,
+    ``call`` = (B, T, S, H, K, hd, causal, window): checked against its plain
+    version in fp32 (the CUDA-core kernel) and bf16 (the tensor-core one),
+    then timed in bf16, the step's compute dtype, beside its bound and SDPA."""
+    B, T, S, H, K, hd, causal, window = call
+    # SDPA's is_causal keeps the same pairs: causal calls have T = S and no window under T
+    assert not causal or (T == S and (window is None or window >= T))
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = grad_check.shifted_qkv(rng, T, T, dtype, B=B, H=H, K=K, hd=hd)
-        errs[dtype] = check(f"flash {arch} training shape {B},{T},{H},{K},{hd} causal window={window} {dtype}",
-                            flash_attention(q, k, v, window=window), ref.mha_reference(q, k, v, window=window),
-                            TOL[dtype])
+        q, k, v = grad_check.shifted_qkv(rng, T, S, dtype, B=B, H=H, K=K, hd=hd)
+        errs[dtype] = check(f"flash {name} training call {B},{T},{S},{H},{K},{hd} causal={causal} window={window} "
+                            f"{dtype}", flash_attention(q, k, v, causal=causal, window=window),
+                            ref.mha_reference(q, k, v, causal=causal, window=window), TOL[dtype])
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    flops, nbytes = cost.flash_attention(q, k, v, window=window)
+    flops, nbytes = cost.flash_attention(q, k, v, causal=causal, window=window)
     bound_ms, by = bound(nbytes, flops, torch.bfloat16)
-    print(f"  flash {arch} training shape bf16, ms per call (sdpa = library yardstick), "
+    print(f"  flash {name} training call bf16, ms per call (sdpa = library yardstick), "
           f"bound {bound_ms:.5f} ms ({by}: {nbytes} B, {flops} FLOP):")
-    t = timings(lambda: flash_attention(q, k, v, window=window), lambda: ref.mha_reference(q, k, v, window=window),
-                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), plain_iters=20)
+    t = timings(lambda: flash_attention(q, k, v, causal=causal, window=window),
+                lambda: ref.mha_reference(q, k, v, causal=causal, window=window),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True), plain_iters=20)
     return dict(max_abs_err=errs[torch.bfloat16], max_abs_err_float32=errs[torch.float32], bound_ms=bound_ms,
                 bound_by=by, **t)
 
@@ -1235,7 +1250,8 @@ def mesh_train_check() -> int:
                      "V9 backward": transformer.row_parallel_einsum.backward_calls,
                      "V2": moe.moe_ffn_local.mesh_calls}
             expect = {k: 0 for k in WRAPPERS}
-            expect.update({"flash_attention": L * 2 * A * steps, "V9 forward": row_parallel * 2 * A * steps,
+            expect.update({"flash_attention": cost.train_step_launches(cfg, A, TRAIN_CFG.remat)["flash_attention"]
+                           * steps, "V9 forward": row_parallel * 2 * A * steps,
                            "V9 backward": row_parallel * A * steps,
                            "V2": L * 2 * A * steps if cfg.family == "moe" else 0})
             cmp = compare_runs(meshed, plain)
@@ -1315,27 +1331,12 @@ def phase_mesh_train(smi: str) -> dict:
     return paths
 
 
-def layers_per_call(cfg) -> dict:
-    """{kernel: (launches per prefill call, per decode call)}: one per layer
-    of the kernel's kind; kernels not listed launch never."""
-    L = cfg.n_layers
-    if cfg.family == "ssm":
-        return {"ssd_states": (L, 0), "ssd_output": (L, 0)}
-    if cfg.family == "hybrid":
-        p = cfg.layer_pattern
-        kinds = p * (L // len(p)) + p[: L % len(p)]
-        n_rec, n_attn = kinds.count("R"), kinds.count("A")
-        return {"rglru_scan": (n_rec, 0), "flash_attention": (n_attn, 0), "paged_decode": (0, n_attn)}
-    if cfg.family == "audio":  # encoder self; decoder self and cross
-        return {"flash_attention": (cfg.enc_layers + 2 * L, 0), "paged_decode": (0, 2 * L)}
-    return {"flash_attention": (L, 0), "paged_decode": (0, L)}
-
-
 def serve_path(arch: str, prompt_len: int, max_len: int) -> dict:
     """Serve 8 requests of ``arch`` at full width and depth in bf16, with
     every launch count set to 0 just before; check that each kernel ran once
-    per layer of its kind per prefill or decode call (``layers_per_call``)
-    and the others not at all. Returns the counts of the path's kernels."""
+    per layer of its kind per prefill or decode call
+    (``cost.launches_per_call``) and the others not at all. Returns the
+    counts of the path's kernels."""
     cfg = get_config(arch)
     n_req, max_new = 8, 32
     torch.cuda.empty_cache()
@@ -1359,7 +1360,7 @@ def serve_path(arch: str, prompt_len: int, max_len: int) -> dict:
         raise AssertionError("a token id outside the vocabulary")
     if m["prefill_calls"] != n_req or m["decode_calls"] == 0:
         raise AssertionError(f"prefill calls {m['prefill_calls']}, decode calls {m['decode_calls']}")
-    per_call = layers_per_call(cfg)
+    per_call = cost.launches_per_call(cfg)
     expect = {k: 0 for k in WRAPPERS}
     expect.update({k: pre * m["prefill_calls"] + dec * m["decode_calls"] for k, (pre, dec) in per_call.items()})
     if launches != expect:
@@ -1403,25 +1404,35 @@ def phase_grad_check(dtype: str, arch: str = "qwen3-4b", n_layers: int = 2, gate
     return r
 
 
-def phase_train_full(smi: str, arch: str = "qwen3-4b", n_layers: int | None = None,
-                     grow_segments: bool = True) -> tuple:
+# phase 6b's runs, (arch, layers): full depth (None) but recurrentgemma-9b's
+# 38 layers and qwen2-moe-a2.7b's 24, which need ~167 and ~229 GB of train
+# state (``launch/dryrun.py --one-rank-step 4 512 2``: 9 and 6 layers fit)
+TRAIN_RUNS = (("qwen3-4b", None), ("mamba2-1.3b", None), ("recurrentgemma-9b", 9), ("granite-moe-1b-a400m", None),
+              ("whisper-small", None), ("qwen2-moe-a2.7b", 6))
+TRAIN_STEPS = 4
+
+
+def train_config(arch: str, n_layers: int | None):
+    return get_config(arch) if n_layers is None else cut(arch, n_layers)
+
+
+def phase_train_full(smi: str, arch: str, n_layers: int | None) -> tuple:
     """``arch`` at full width, cut to ``n_layers`` (None: its full depth),
     fp32 masters, bf16 compute, AdamW, remat, global batch 4 × 512 in 2
-    microbatches, 4 steps, every launch count set to 0 just before: each
-    kernel of the path launched once per layer of its kind in every forward
-    and every remat recompute (``layers_per_call``'s prefill counts × 2 ×
-    microbatches × steps), no other kernel; finite losses, peak memory under
-    ``MEMORY_LIMIT``. With ``grow_segments`` the caching allocator is the
-    training entry's (``launch/train.py::train_allocator``), else its
-    default fixed-size segments. Returns the path's launches, and what phase
-    ``dryrun`` holds its prediction against: the bytes allocated by
+    microbatches (with the pipeline's inputs beside the tokens, as the
+    trainer's: whisper's 1500 frame embeddings a row), 4 steps, the caching
+    allocator's segments growing in place as the training entry sets them
+    (``launch/train.py::train_allocator``), every launch count set to 0 just
+    before: each kernel launched exactly ``cost.train_step_launches`` × 4
+    times and no other kernel; finite losses, peak allocated and reserved
+    memory under ``MEMORY_LIMIT``. Returns the path's launches, and what
+    phase ``dryrun`` holds its prediction against: the bytes allocated by
     ``init_state``, the peak allocated, the mean step ms, and one more step
     counted as the dry run counts (``FlopCounterMode`` and the kernels'
     tally)."""
-    segments = "growing" if grow_segments else "fixed-size"
-    with train.train_allocator("cuda") if grow_segments else contextlib.nullcontext():
-        cfg = get_config(arch) if n_layers is None else cut(arch, n_layers)
-        B, T, A, steps = TRAIN_B, TRAIN_T, TRAIN_CFG.accum_steps, 4
+    with train.train_allocator("cuda"):
+        cfg = train_config(arch, n_layers)
+        B, T, A, steps = TRAIN_B, TRAIN_T, TRAIN_CFG.accum_steps, TRAIN_STEPS
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1431,7 +1442,7 @@ def phase_train_full(smi: str, arch: str = "qwen3-4b", n_layers: int | None = No
         state_bytes = torch.cuda.memory_allocated() - before
         n_params = sum(p.numel() for p in model.parameters())
         step_fn = make_train_step(model, TRAIN_CFG)
-        pipe = TokenPipeline(cfg.vocab, B, T, seed=0)
+        pipe = TokenPipeline(cfg.vocab, B, T, seed=0, extra_fields=extra_fields(cfg))
         batches = [{k: torch.from_numpy(v).cuda() for k, v in pipe.next_batch().items()} for _ in range(steps)]
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
@@ -1447,17 +1458,16 @@ def phase_train_full(smi: str, arch: str = "qwen3-4b", n_layers: int | None = No
         launches = {k: fn.launches for k, fn in WRAPPERS.items()}
         peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
         step_ms = sum(ms[1:]) / len(ms[1:])
-        print(f"[6b train] {arch} {cfg.n_layers} layers d_model {cfg.d_model}, {n_params} parameters, fp32 masters, "
-              f"bf16 compute, AdamW, remat, global batch {B} x {T} in {A} microbatches, allocator segments {segments}: "
+        print(f"[6b train] {arch} {cfg.n_layers} layers{encoder_layers(cfg)} d_model {cfg.d_model}, {n_params} "
+              f"parameters, fp32 masters, bf16 compute, AdamW, remat, global batch {B} x {T} in {A} microbatches: "
               f"losses {losses}, grad_norm {float(metrics['grad_norm']):.4f}, step ms {['%.1f' % t for t in ms]}, "
               f"steps 2-{steps} {step_ms:.1f} ms, {B * T / step_ms * 1e3:.1f} training tokens/s, state "
               f"{state_bytes / 1e9:.2f} GB, peak allocated {peak / 1e9:.2f} GB, reserved {reserved / 1e9:.2f} GB "
               f"(limit {MEMORY_LIMIT / 1e9:.0f} GB), set-up {setup_s:.1f} s, launches {launches} [{smi}]")
         if not all(np.isfinite(losses)):
             raise AssertionError(f"{arch}: a training loss is not finite: {losses}")
-        per_call = {k: pre for k, (pre, _) in layers_per_call(cfg).items() if pre}
-        expect = {k: 0 for k in WRAPPERS}
-        expect.update({k: n * 2 * A * steps for k, n in per_call.items()})  # forward and remat recompute
+        per_step = cost.train_step_launches(cfg, A, TRAIN_CFG.remat)
+        expect = {k: per_step.get(k, 0) * steps for k in WRAPPERS}
         if launches != expect:
             raise AssertionError(f"{arch}: training launches {launches} != {expect}")
         if max(peak, reserved) >= MEMORY_LIMIT:
@@ -1467,10 +1477,32 @@ def phase_train_full(smi: str, arch: str = "qwen3-4b", n_layers: int | None = No
         torch.cuda.synchronize()
         del model, state, step_fn, batches, counted["out"]
         torch.cuda.empty_cache()
-        return ({k: launches[k] for k in per_call},
-                {"state_bytes": state_bytes, "peak_allocated": peak, "step_ms": step_ms, "flops": counted["flops"],
-                 "aten_flops": counted["aten_flops"], "kernel_flops": counted["kernel_flops"],
-                 "kernel_calls": counted["kernel_calls"]})
+        return ({k: launches[k] for k in per_step},
+                {"state_bytes": state_bytes, "peak_allocated": peak, "peak_reserved": reserved, "step_ms": step_ms,
+                 "flops": counted["flops"], "aten_flops": counted["aten_flops"],
+                 "kernel_flops": counted["kernel_flops"], "kernel_calls": counted["kernel_calls"]})
+
+
+def one_rank_records() -> dict:
+    """Phase 6b's runs predicted on the meta device (in :func:`cpu_checks`):
+    {arch: the ``launch.dryrun`` record of its step on one rank at 6b's
+    shape (global batch 4 × 512, accumulation 2, remat, AdamW), its memory,
+    FLOPs and roofline; and "meta": the whole step counted as phase 6b
+    counts its extra step (``FlopCounterMode`` and the kernels' tally)}."""
+    cell = ShapeCell("phase6b", TRAIN_T, TRAIN_B, "train")
+    out = {}
+    for arch, n_layers in TRAIN_RUNS:
+        rec = dryrun.run_cell(arch, cell.name, mesh=MeshLayout((1, 1), ("data", "model")), cell=cell,
+                              train_cfg=TRAIN_CFG, quiet=True, n_layers=n_layers)
+        cfg = train_config(arch, n_layers)
+        model = build_model(cfg, "meta")
+        state = init_state(model, None, TRAIN_CFG.opt)
+        batch, _ = specs.batch_specs(cfg, cell)
+        meta = dryrun.count_step(lambda: make_train_step(model, TRAIN_CFG)(state, batch))
+        out[arch] = {"memory": {k: v for k, v in rec["memory"].items() if k != "temp_bytes_basis"},
+                     "flops_per_device": rec["cost"]["flops_per_device"], "roofline": rec["roofline"],
+                     "meta": {k: meta[k] for k in ("flops", "aten_flops", "kernel_flops", "kernel_calls")}}
+    return out
 
 
 def phase_dryrun(smi: str, card: dict, checks: dict) -> None:
@@ -1479,12 +1511,13 @@ def phase_dryrun(smi: str, card: dict, checks: dict) -> None:
     :func:`cpu_checks` wrote on the meta device (no JAX on this machine):
     every cell ``ok``, or ``skip`` with the config's own reason, none
     ``error``; the counts, the seconds and the roofline table of pod16x16
-    printed. (2) The record of qwen3-4b at
-    phase 6b's shape (global batch 4 × 512, accumulation 2, remat, AdamW) on
-    one rank, held against the card: the argument bytes within ``ARGS_RTOL``
-    of what ``init_state`` allocated, gated; the FLOPs of one step, meta
-    against card, gated equal (and the record's microstep × 2 equal to
-    both); argument + temp bytes over phase 6b's peak and the step's FLOPs
+    printed. (2) Each phase-6b run's record on one rank
+    (:func:`one_rank_records`, also from :func:`cpu_checks`), held against
+    the card's run (``card``: {arch: :func:`phase_train_full`'s numbers}):
+    the argument bytes within ``ARGS_RTOL`` of what ``init_state``
+    allocated, and the FLOPs of one step, meta against card, equal (and the
+    record's microstep × 2 equal to both), gated; the predicted total per
+    device and its 80 GB fit beside the card's peak, and the step's FLOPs
     over its ms as a share of the bf16 peak (``train_mfu``), recorded."""
     import importlib.util
 
@@ -1504,31 +1537,31 @@ def phase_dryrun(smi: str, card: dict, checks: dict) -> None:
     if rc != 0 or counts["error"] or wrong_skips or len(recs) != 2 * len(ARCH_IDS) * len(SHAPES):
         raise AssertionError(f"dry run: rc {rc}, {counts}, skips without the config's reason {wrong_skips}")
 
-    cfg = get_config("qwen3-4b")
-    cell = ShapeCell("phase6b", TRAIN_T, TRAIN_B, "train")
-    rec = dryrun.run_cell("qwen3-4b", cell.name, mesh=MeshLayout((1, 1), ("data", "model")), cell=cell,
-                          train_cfg=TRAIN_CFG, quiet=True)
-    model = build_model(cfg, "meta")
-    state = init_state(model, None, TRAIN_CFG.opt)
-    batch, _ = specs.batch_specs(cfg, cell)
-    meta = dryrun.count_step(lambda: make_train_step(model, TRAIN_CFG)(state, batch))
-    args, temp = rec["memory"]["argument_bytes"], rec["memory"]["temp_bytes"]
-    args_err = abs(args - card["state_bytes"]) / card["state_bytes"]
-    mfu = card["flops"] / (card["step_ms"] / 1e3) / H100["peak_flops_bf16"]
-    print(f"[dryrun] qwen3-4b at phase 6b's shape (4 x 512, accumulation 2, remat, AdamW) on one rank, "
-          f"predicted against the card [{smi}]: argument bytes {args} vs {card['state_bytes']} allocated by "
-          f"init_state (|d| {args_err:.3e}, gate {ARGS_RTOL}); FLOPs of one step: meta {meta['flops']} (aten "
-          f"{meta['aten_flops']}, kernels {meta['kernel_flops']}, calls {meta['kernel_calls']}), card "
-          f"{card['flops']} (aten {card['aten_flops']}, kernels {card['kernel_flops']}, calls "
-          f"{card['kernel_calls']}), record {rec['cost']['flops_per_device']:.0f} "
-          f"({'equal' if meta['flops'] == card['flops'] == rec['cost']['flops_per_device'] else 'DIFFER'}); "
-          f"memory: argument + temp {args + temp} B over phase 6b's peak allocated {card['peak_allocated']} B = "
-          f"{(args + temp) / card['peak_allocated']:.4f} (not gated); train_mfu {mfu:.4f} "
-          f"({card['flops']} FLOP in {card['step_ms']:.1f} ms over {H100['peak_flops_bf16']:.3g} FLOP/s bf16); "
-          f"roofline {rec['roofline']}")
-    if args_err > ARGS_RTOL or not meta["flops"] == card["flops"] == rec["cost"]["flops_per_device"]:
-        raise AssertionError(f"dry run against the card: argument bytes off by {args_err}, FLOPs meta "
-                             f"{meta['flops']} card {card['flops']} record {rec['cost']['flops_per_device']}")
+    bad = []
+    for arch, n_layers in TRAIN_RUNS:
+        rec, c = checks["one_rank"][arch], card[arch]
+        mem, meta = rec["memory"], rec["meta"]
+        args = mem["argument_bytes"]
+        args_err = abs(args - c["state_bytes"]) / c["state_bytes"]
+        flops_equal = meta["flops"] == c["flops"] == rec["flops_per_device"]
+        mfu = c["flops"] / (c["step_ms"] / 1e3) / H100["peak_flops_bf16"]
+        layers = f"{train_config(arch, n_layers).n_layers} layers"
+        print(f"[dryrun] {arch} {layers} at phase 6b's shape (4 x 512, accumulation 2, remat, AdamW) on one rank, "
+              f"predicted against the card [{smi}]: argument bytes {args} vs {c['state_bytes']} allocated by "
+              f"init_state (|d| {args_err:.3e}, gate {ARGS_RTOL}); FLOPs of one step: meta {meta['flops']} (aten "
+              f"{meta['aten_flops']}, kernels {meta['kernel_flops']}, calls {meta['kernel_calls']}), card "
+              f"{c['flops']} (aten {c['aten_flops']}, kernels {c['kernel_flops']}, calls {c['kernel_calls']}), "
+              f"record {rec['flops_per_device']:.0f} ({'equal' if flops_equal else 'DIFFER'}); memory: predicted "
+              f"total {mem['total_per_device']} B (argument {args} + temp {mem['temp_bytes']} + output "
+              f"{mem['output_bytes']} - alias {mem['alias_bytes']}; fits {mem['device_bytes'] / 1e9:.0f} GB: "
+              f"{mem['fits']}) over 6b's peak allocated {c['peak_allocated']} B = "
+              f"{mem['total_per_device'] / c['peak_allocated']:.4f} (reserved {c['peak_reserved']} B; not gated); "
+              f"train_mfu {mfu:.4f} ({c['flops']} FLOP in {c['step_ms']:.1f} ms over "
+              f"{H100['peak_flops_bf16']:.3g} FLOP/s bf16); roofline {rec['roofline']}")
+        if args_err > ARGS_RTOL or not flops_equal:
+            bad.append((arch, args_err, meta["flops"], c["flops"], rec["flops_per_device"]))
+    if bad:
+        raise AssertionError(f"dry run against the card (arch, argument bytes |d|, FLOPs meta, card, record): {bad}")
 
 
 CKPT_ROOT = Path(__file__).resolve().parent / "build" / "ckpt"
@@ -1653,8 +1686,9 @@ def cpu_checks() -> int:
     :func:`main` starts after phase 3 and joins before phase dryrun, so that
     it runs beside the card phases: (1) ``repro_torch.launch.dryrun --all
     --both-meshes`` on the meta device, its records written under
-    ``build/dryrun`` for phase dryrun to check; (2) the port's harnesses on
-    the checkout's disk under ``build/ckpt``: ``model_db`` on one engine and
+    ``build/dryrun`` for phase dryrun to check, then phase 6b's runs on one
+    rank (:func:`one_rank_records`); (2) the port's harnesses on the
+    checkout's disk under ``build/ckpt``: ``model_db`` on one engine and
     on 3 shards, ``crash_harness`` and ``failover_harness`` in sync and
     async WAL modes. Prints one JSON line; exits non-zero if the dry run
     failed or a harness found a divergence or a violation."""
@@ -1667,6 +1701,9 @@ def cpu_checks() -> int:
     with open(os.devnull, "w") as devnull, contextlib.redirect_stdout(devnull):
         rc = dryrun.main(["--all", "--both-meshes", "--out", str(DRYRUN_DIR)])
     out["dryrun"] = {"rc": rc, "seconds": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    out["one_rank"] = one_rank_records()
+    out["one_rank_s"] = time.perf_counter() - t1
 
     t1 = time.perf_counter()
     harness_dir = fresh_dir("6d_harness")  # the harnesses make their directories with mkdtemp
@@ -2005,21 +2042,22 @@ def run_phases(name, smi, t_start, marks, results, cpu) -> int:
     marks["serve"] = time.perf_counter() - t_start
     phase_grad_check("float32")
     phase_grad_check("bfloat16")
-    phase_grad_check("float32", "granite-moe-1b-a400m")
-    phase_grad_check("float32", "whisper-small")
+    for arch in ("granite-moe-1b-a400m", "qwen2-moe-a2.7b", "whisper-small"):
+        phase_grad_check("float32", arch)
     for arch, n_layers in (("mamba2-1.3b", 2), ("recurrentgemma-9b", 3)):
         phase_grad_check("float32", arch, n_layers)
-        phase_grad_check("bfloat16", arch, n_layers, gated=False)  # ROADMAP Queue C 11
+    # ROADMAP Queue C 11, recorded (recurrentgemma-9b's: launch/grad_check.py --arch recurrentgemma-9b --layers 3)
+    phase_grad_check("bfloat16", "mamba2-1.3b", gated=False)
     marks["6a"] = time.perf_counter() - t_start
-    phase_train_full(smi, grow_segments=False)  # the allocator's cost, recorded
-    by_path["qwen3-4b training"], train_numbers = phase_train_full(smi)
-    by_path["mamba2-1.3b training"], _ = phase_train_full(smi, "mamba2-1.3b")
-    by_path["recurrentgemma-9b training"], _ = phase_train_full(smi, "recurrentgemma-9b", n_layers=9)
+    train_numbers = {}
+    for arch, n_layers in TRAIN_RUNS:
+        by_path[f"{arch} training"], train_numbers[arch] = phase_train_full(smi, arch, n_layers)
     marks["6b"] = time.perf_counter() - t_start
     t_join = time.perf_counter()
     checks = join_cpu_checks(cpu)
     print(f"[cpu checks] the child process beside the card phases: {checks['seconds']:.1f} s (dry run "
-          f"{checks['dryrun']['seconds']:.1f} s, harnesses {checks['harness_s']:.1f} s); waited "
+          f"{checks['dryrun']['seconds']:.1f} s, phase 6b's runs on one rank {checks['one_rank_s']:.1f} s, "
+          f"harnesses {checks['harness_s']:.1f} s); waited "
           f"{time.perf_counter() - t_join:.1f} s for it")
     phase_dryrun(smi, train_numbers, checks)
     marks["dryrun"] = time.perf_counter() - t_start
@@ -2032,8 +2070,10 @@ def run_phases(name, smi, t_start, marks, results, cpu) -> int:
     # its top-level times are taken at; every path's count beside them, and
     # the times at another path's shapes (head_dim 256, the MoE heads, the
     # training shapes) with that path's count
-    sub_paths = {"hd256": "recurrentgemma-9b", "hd256 training": "recurrentgemma-9b training",
-                 **{arch: arch for arch, *_ in MOE_HEADS}, "whisper-small": "whisper-small"}
+    sub_paths = {"hd256": "recurrentgemma-9b", **{arch: arch for arch, *_ in MOE_HEADS},
+                 "whisper-small": "whisper-small",
+                 **{training_key(call): f"{call.split()[0]} training" for call in grad_check.FLASH_TRAIN_CALLS
+                    if call != "qwen3-4b"}}
     training_path = {"flash_attention": "qwen3-4b training", "ssd_states": "mamba2-1.3b training",
                      "ssd_output": "mamba2-1.3b training", "rglru_scan": "recurrentgemma-9b training"}
     line = {"kernels": []}

@@ -14,6 +14,11 @@ alike. Paged decode's work depends on the lengths: the CUDA route reads
 them, a meta tensor has none, and the meta route counts every sequence at
 its page table's capacity (the dry run's decode cells decode at a full
 cache, where the two agree).
+
+:func:`launches_per_call` and :func:`train_step_launches` give how many
+times a model's serving calls and train steps launch each kernel, from its
+config: what a run on the card is checked against, and what the meta
+step's tally counts.
 """
 from __future__ import annotations
 
@@ -92,6 +97,35 @@ def ssd_output(x, dA, C_, chunk: int) -> Cost:
     return Cost(2 * b * nc * h * chunk * p * n,
                 F32 * (b * nc * h * chunk * p + dA.numel() + b * nc * h * p * n) + C_.numel() * C_.element_size()
                 + x.numel() * x.element_size())
+
+
+def launches_per_call(cfg) -> dict[str, tuple[int, int]]:
+    """{kernel: (launches per prefill or training forward, per decode
+    call)} of a model config: one per layer of the kernel's kind (whisper:
+    its encoder's self-attention, and its decoder's self- and
+    cross-attention in the forward, self and cross in decode); kernels not
+    listed launch never."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        return {"ssd_states": (L, 0), "ssd_output": (L, 0)}
+    if cfg.family == "hybrid":
+        n_attn = sum(cfg._layer_kind(i) == "A" for i in range(L))
+        return {"rglru_scan": (L - n_attn, 0), "flash_attention": (n_attn, 0), "paged_decode": (0, n_attn)}
+    if cfg.family == "audio":
+        return {"flash_attention": (cfg.enc_layers + 2 * L, 0), "paged_decode": (0, 2 * L)}
+    return {"flash_attention": (L, 0), "paged_decode": (0, L)}
+
+
+def train_step_launches(cfg, accum_steps: int, remat: bool) -> dict[str, int]:
+    """{kernel: launches in one train step of ``accum_steps`` microbatches}:
+    each layer's kernel once in every microbatch's forward and, under
+    ``remat``, once more when the backward recomputes the layer. The
+    backwards (``ops.Attention``, ``SSDScan``, ``RGLRU``) launch none. Every
+    layer is a remat region of its own, whisper's encoder layers too, so the
+    encoder's, the decoder's self- and its cross-attention calls all come
+    twice a microbatch; kernels not listed launch never."""
+    passes = 2 if remat else 1
+    return {k: n * passes * accum_steps for k, (n, _) in launches_per_call(cfg).items() if n}
 
 
 def rglru_scan(x, r, i, lam, h0=None) -> Cost:

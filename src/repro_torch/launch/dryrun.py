@@ -11,6 +11,11 @@ place of the shape cells on the production layouts, one rank's train step
 at global batch B × T in A microbatches (AdamW, remat): the step
 ``chip_smoke.py`` phase 6b runs on one card.
 
+Every record and its line say whether a rank's ``total_per_device`` fits
+one H100's memory (``memory.fits`` against ``memory.device_bytes``,
+``launch/mesh.py::H100["hbm_bytes"]``, 80 GB); ``benchmarks/roofline.py``'s
+own ``fits`` column reads its 16 GiB limit.
+
 Each cell writes ``<out>/<arch>__<shape>__<mesh>[__variant].json`` in the
 reference's record layout, which ``benchmarks/roofline.py --dir <out>``
 renders. The port's counterpart of the reference's ``launch/dryrun.py``:
@@ -390,6 +395,7 @@ def analyze(recipe, cfg, cell, mesh, flags: PerfConfig) -> dict:
             else:
                 out_bytes += t.untyped_storage().nbytes()
     out_bytes += alias
+    total = arg_bytes + temp + out_bytes - alias
     flops = res["flops"] * accum / model_n
     mflops = model_flops(cfg, cell)
     mem_bytes = analytic_memory_bytes(cfg, cell, sizes, accum=accum)
@@ -402,7 +408,9 @@ def analyze(recipe, cfg, cell, mesh, flags: PerfConfig) -> dict:
             "output_bytes": out_bytes,
             "temp_bytes": temp,
             "alias_bytes": alias,
-            "total_per_device": arg_bytes + temp + out_bytes - alias,
+            "total_per_device": total,
+            "device_bytes": H100["hbm_bytes"],
+            "fits": total <= H100["hbm_bytes"],
             "temp_bytes_basis": TEMP_BASIS.format(grads=grads),
         },
         "cost": {
@@ -458,6 +466,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False, rules=None, variant
         mem, rf = rec["memory"], rec["roofline"]
         print(f"[{arch} × {shape} × {mesh_name} × {variant}] OK  "
               f"args={mem['argument_bytes'] / 2**30:.2f}GiB temp={mem['temp_bytes'] / 2**30:.2f}GiB "
+              f"total={mem['total_per_device'] / 1e9:.2f}GB fits {mem['device_bytes'] / 1e9:.0f} GB: "
+              f"{'yes' if mem['fits'] else 'NO'} "
               f"flops/dev={rec['cost']['flops_per_device']:.3e} dominant={rf['dominant']} "
               f"(c={rf['compute_s'] * 1e3:.1f}ms m={rf['memory_s'] * 1e3:.1f}ms "
               f"coll={rf['collective_s'] * 1e3:.1f}ms) {rec['t_trace_s']:.1f}s", flush=True)

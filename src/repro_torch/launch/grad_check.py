@@ -63,11 +63,18 @@ from repro_torch.training.trainer import extra_fields
 GRAD_RTOL = {"float32": 1e-3, "bfloat16": 1e-2}
 FLASH_BF16_TOL = (2e-2, 1e-2)  # tests/test_kernels.py::_tol, with rtol 1e-2
 # one microbatch (B 2 of the global 4, T 512) of chip_smoke.py phase 6b's
-# steps at the calls of the kernels: flash (B, T, H, K, hd, window; causal)
-# for qwen3-4b and for recurrentgemma-9b's local attention, mamba2-1.3b's SSD
-# (b, t, h, p, n, chunk) and recurrentgemma-9b's RG-LRU (B, T, W)
-TRAIN_SHAPE = (2, 512, 32, 8, 128, None)
-HD256_TRAIN_SHAPE = (2, 512, 16, 1, 256, 2048)
+# steps at the calls of the kernels: flash (B, T, S, H, K, hd, causal,
+# window) for each attention call of a run, mamba2-1.3b's SSD (b, t, h, p,
+# n, chunk) and recurrentgemma-9b's RG-LRU (B, T, W)
+FLASH_TRAIN_CALLS = {
+    "qwen3-4b": (2, 512, 512, 32, 8, 128, True, None),
+    "recurrentgemma-9b": (2, 512, 512, 16, 1, 256, True, 2048),  # local attention, window ≥ T
+    "granite-moe-1b-a400m": (2, 512, 512, 16, 8, 64, True, None),
+    "qwen2-moe-a2.7b": (2, 512, 512, 16, 16, 128, True, None),
+    "whisper-small encoder": (2, 1500, 1500, 12, 12, 64, False, None),
+    "whisper-small cross": (2, 512, 1500, 12, 12, 64, False, None),
+    "whisper-small decoder self": (2, 512, 512, 12, 12, 64, True, None),
+}
 SSD_TRAIN_SHAPE = (2, 512, 64, 64, 128, 256)
 RGLRU_TRAIN_SHAPE = (2, 512, 4096)
 # whisper-small's non-causal flash calls, (T, S) at H = K = 12, hd 64: the

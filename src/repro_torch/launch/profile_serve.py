@@ -92,6 +92,16 @@ def device_time(prof, parts) -> tuple[dict, dict]:
     return dict(by_group), {name: dict(g) for name, g in by_part.items()}
 
 
+def top_kernels(prof, parts, n: int = 12) -> dict:
+    """The ``n`` kernels of most device time: {name (cut to 90 characters):
+    ms}, the parts' ranges left out."""
+    by_kernel: dict[str, float] = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name not in parts:
+            by_kernel[e.name] += e.time_range.elapsed_us()
+    return {k[:90]: v / 1e3 for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:n]}
+
+
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b")
@@ -113,10 +123,6 @@ def main(argv: list[str] | None = None) -> dict:
         _, m = serve.run(model, **window)
 
     by_group, by_part = device_time(prof, PARTS)
-    by_kernel: dict[str, float] = defaultdict(float)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.name not in PARTS:
-            by_kernel[e.name] += e.time_range.elapsed_us()
     busy = sum(by_group.values()) / 1e3
     wall = plain["wall_s"]
     out = {
@@ -125,7 +131,7 @@ def main(argv: list[str] | None = None) -> dict:
         "wall_s": wall, "wall_profiled_s": m["wall_s"], "device_busy_s": busy, "busy_share": busy / wall,
         "groups_ms": {g: v for g, v in sorted(by_group.items(), key=lambda kv: -kv[1])},
         "parts_ms": by_part,
-        "top_kernels_ms": {k[:90]: v / 1e3 for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]},
+        "top_kernels_ms": top_kernels(prof, PARTS),
     }
     print(f"window: {wall:.3f} s wall ({m['wall_s']:.3f} s profiled), device busy {busy:.3f} s "
           f"({100 * busy / wall:.1f}%), {m['prefill_calls']} prefills, {m['decode_calls']} decode calls")

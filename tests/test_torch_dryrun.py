@@ -340,6 +340,67 @@ def test_meta_train_step_counts_accum_microsteps(arch):
     assert rec["collectives"]["per_op"] == [] and rec["roofline"]["collective_s"] == 0
 
 
+# the configs of chip_smoke.py phase 6b's runs, reduced (remat and not), and
+# qwen3-4b at full size and phase 6b's shape, whose step the card counted at
+# 144 flash calls (phase dryrun)
+LAUNCH_CASES = [(arch, remat, False) for arch in ("granite-moe-1b-a400m", "qwen2-moe-a2.7b", "whisper-small",
+                                                  "mamba2-1.3b", "recurrentgemma-9b") for remat in (True, False)]
+LAUNCH_CASES += [("qwen3-4b", True, False), ("qwen3-4b", True, True)]
+
+
+@pytest.mark.parametrize("arch,remat,full", LAUNCH_CASES)
+def test_train_step_launches_are_the_meta_step_s(arch, remat, full):
+    """``cost.train_step_launches`` (what phase 6b holds the card's launch
+    counts to) equals the kernel calls that a whole train step of 2
+    microbatches counts on the meta device, which takes the card's route:
+    whisper's encoder, self- and cross-attention each once in a forward and
+    once in a remat recompute, the backwards none."""
+    cfg = get_config(arch) if full else get_config(arch).reduced()
+    cell = ShapeCell("t", 512 if full else 64, 4, "train")
+    tc = TrainConfig(opt=OptimizerConfig(), accum_steps=2, remat=remat)
+    model = build_model(cfg, "meta")
+    state = init_state(model, None, tc.opt)
+    batch, _ = specs.batch_specs(cfg, cell)
+    whole = dryrun.count_step(lambda: make_train_step(model, tc)(state, batch))
+    expect = cost.train_step_launches(cfg, tc.accum_steps, remat)
+    assert whole["kernel_calls"] == expect
+    if full:
+        assert expect == {"flash_attention": 144}
+
+
+def test_launches_per_call_by_family():
+    """One launch per layer of the kernel's kind: recurrentgemma-9b's 38
+    layers are 26 RG-LRU and 12 local attention; whisper-small prefills
+    through its 12 encoder and 2 × 12 decoder attention layers and decodes
+    over the self and cross caches."""
+    assert cost.launches_per_call(get_config("recurrentgemma-9b")) == {
+        "rglru_scan": (26, 0), "flash_attention": (12, 0), "paged_decode": (0, 12)}
+    assert cost.launches_per_call(get_config("whisper-small")) == {"flash_attention": (36, 0),
+                                                                   "paged_decode": (0, 24)}
+    assert cost.launches_per_call(get_config("mamba2-1.3b")) == {"ssd_states": (48, 0), "ssd_output": (48, 0)}
+    assert cost.launches_per_call(get_config("qwen2-moe-a2.7b")) == {"flash_attention": (24, 0),
+                                                                     "paged_decode": (0, 24)}
+    assert cost.train_step_launches(get_config("whisper-small"), 2, True) == {"flash_attention": 144}
+
+
+# (arch, layers, fits): phase 6b's cuts fit one card, the full depths do not
+FIT_CASES = [("recurrentgemma-9b", 9, True), ("qwen2-moe-a2.7b", 6, True), ("recurrentgemma-9b", 38, False),
+             ("qwen2-moe-a2.7b", 24, False)]
+
+
+@pytest.mark.parametrize("arch,layers,fits", FIT_CASES)
+def test_one_rank_step_judges_fit_at_80_gb(arch, layers, fits, tmp_path, capsys):
+    """``--one-rank-step 4 512 2`` (phase 6b's step on one card) records
+    whether a rank's total fits the H100's 80 GB, and says so on its line."""
+    assert dryrun.main(["--arch", arch, "--layers", str(layers), "--one-rank-step", "4", "512", "2",
+                        "--out", str(tmp_path)]) == 0
+    rec = json.loads((tmp_path / f"{arch}__step4x512a2__data1xmodel1.json").read_text())
+    mem = rec["memory"]
+    assert mem["device_bytes"] == 80e9
+    assert mem["fits"] is fits and (mem["total_per_device"] <= 80e9) is fits
+    assert f"fits 80 GB: {'yes' if fits else 'NO'}" in capsys.readouterr().out
+
+
 def _backward_flops(fn, inputs, needs_grad) -> int:
     """FlopCounterMode's count of ``fn``'s backward on meta ``inputs`` (the
     forward runs outside the counter), the cotangent on its first output
