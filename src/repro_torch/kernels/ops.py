@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from . import cost, ref
 from .decode_attention import paged_decode_attention
 from .flash_attention import attention_backward, flash_attention
@@ -65,6 +66,7 @@ class Attention(torch.autograd.Function):
         return attention(q, k, v, causal=causal, window=window)
 
     @staticmethod
+    @trace.spanned("attention.backward")
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = attention_backward(q, k, v, do, causal=ctx.causal, window=ctx.window, q_chunk=ctx.q_chunk)
@@ -186,6 +188,7 @@ class SSDScan(torch.autograd.Function):
         return ssd_scan(x, dA, B_, C_, chunk)
 
     @staticmethod
+    @trace.spanned("ssd.backward")
     def backward(ctx, dy, dH):
         x, dA, B_, C_ = _grad_leaves(ctx, ctx.saved_tensors)
         return (*ssd_backward(x, dA, B_, C_, ctx.chunk, dy, dH), None)
@@ -203,5 +206,6 @@ class RGLRU(torch.autograd.Function):
         return rglru(x, r, i, lam, h0)
 
     @staticmethod
+    @trace.spanned("rglru.backward")
     def backward(ctx, dy, dh):
         return rglru_backward(*_grad_leaves(ctx, ctx.saved_tensors), dy, dh)

@@ -17,8 +17,10 @@ again under it), the device's busy time (the sum of its kernel and copy
 times: one stream, so they do not overlap), the busy share, the device
 time by kernel group and of the top kernels, and the device time by kernel
 group inside each part of the path that runs (``PARTS``: a MoE model's
-whole MoE FFN and its dispatch, which builds the expert table; whisper's
-encoder). The last line is the same as one JSON object. Needs a CUDA card.
+whole MoE FFN and its dispatch, which builds the expert table and gathers
+the tokens into it; whisper's encoder). A part is a set of the program's
+own spans (:mod:`repro_torch.trace`), which open while the profiler
+records. The last line is the same as one JSON object. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -28,12 +30,12 @@ from collections import defaultdict
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
+from repro_torch import trace
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve
-from repro_torch.models import moe, transformer, whisper
 
 GROUPS = [  # (group, substrings of the kernel name), first match wins
     ("flash_attention kernel", ("flash_fwd_mma_kernel", "flash_fwd_kernel")),  # bf16, fp32
@@ -48,10 +50,10 @@ GROUPS = [  # (group, substrings of the kernel name), first match wins
 ]
 
 
-PARTS = {  # part of the serving path: (module, function) whose launches it covers
-    "moe ffn": (transformer, "moe_ffn"),
-    "moe dispatch": (moe, "dispatch"),
-    "whisper encoder": (whisper.WhisperModel, "encode"),
+PARTS = {  # part of the serving path: the program's spans whose launches it covers
+    "moe ffn": ("moe.route", "moe.dispatch", "moe.experts", "moe.combine", "moe.shared"),
+    "moe dispatch": ("moe.dispatch",),
+    "whisper encoder": ("whisper.encode",),
 }
 
 
@@ -63,23 +65,21 @@ def group_of(name: str) -> str:
     return "other"
 
 
-def annotated(name, fn):
-    """``fn`` inside a profiler range named ``name``."""
-    def wrapper(*args, **kwargs):
-        with record_function(name):
-            return fn(*args, **kwargs)
-    return wrapper
-
-
-def device_time(prof, parts) -> tuple[dict, dict]:
+def device_time(prof, parts: dict) -> tuple[dict, dict]:
     """(device ms by kernel group, {part: device ms by kernel group}): a
-    part's kernels are those that start inside its ranges on the device."""
+    part's kernels are those that start on the device inside the device-side
+    ranges of its spans (``parts``: {part: span names})."""
+    of_span = defaultdict(list)  # "repro_torch.<span>" → the parts it belongs to
+    for part, names in parts.items():
+        for name in names:
+            of_span[trace.PREFIX + name].append(part)
     kernels, ranges = [], defaultdict(list)
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        if e.name in parts:
-            ranges[e.name].append((e.time_range.start, e.time_range.end))
+        if e.name.startswith(trace.PREFIX):
+            for part in of_span.get(e.name, ()):
+                ranges[part].append((e.time_range.start, e.time_range.end))
         else:
             kernels.append((e.time_range.start, group_of(e.name), e.time_range.elapsed_us() / 1e3))
     by_group: dict[str, float] = defaultdict(float)
@@ -92,12 +92,12 @@ def device_time(prof, parts) -> tuple[dict, dict]:
     return dict(by_group), {name: dict(g) for name, g in by_part.items()}
 
 
-def top_kernels(prof, parts, n: int = 12) -> dict:
+def top_kernels(prof, n: int = 12) -> dict:
     """The ``n`` kernels of most device time: {name (cut to 90 characters):
-    ms}, the parts' ranges left out."""
+    ms}, the spans' device-side ranges left out."""
     by_kernel: dict[str, float] = defaultdict(float)
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.name not in parts:
+        if e.device_type == DeviceType.CUDA and not e.name.startswith(trace.PREFIX):
             by_kernel[e.name] += e.time_range.elapsed_us()
     return {k[:90]: v / 1e3 for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:n]}
 
@@ -117,8 +117,6 @@ def main(argv: list[str] | None = None) -> dict:
                   max_batch=args.max_batch, max_len=args.max_len)
     serve.run(model, **{**window, "requests": 1})  # warm-up: kernel builds, cuBLAS, allocator
     _, plain = serve.run(model, **window)  # the window without the profiler
-    for name, (module, attr) in PARTS.items():
-        setattr(module, attr, annotated(name, getattr(module, attr)))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, m = serve.run(model, **window)
 
@@ -131,7 +129,7 @@ def main(argv: list[str] | None = None) -> dict:
         "wall_s": wall, "wall_profiled_s": m["wall_s"], "device_busy_s": busy, "busy_share": busy / wall,
         "groups_ms": {g: v for g, v in sorted(by_group.items(), key=lambda kv: -kv[1])},
         "parts_ms": by_part,
-        "top_kernels_ms": top_kernels(prof, PARTS),
+        "top_kernels_ms": top_kernels(prof),
     }
     print(f"window: {wall:.3f} s wall ({m['wall_s']:.3f} s profiled), device busy {busy:.3f} s "
           f"({100 * busy / wall:.1f}%), {m['prefill_calls']} prefills, {m['decode_calls']} decode calls")

@@ -17,15 +17,16 @@ embeddings). Prints the step's wall time (timed once without the profiler,
 then run again under it), the device's busy time (the sum of its kernel
 and copy times: one stream, so they do not overlap) and busy share, the
 device time by kernel group and of the top kernels (as ``profile_serve``)
-and by part of the step: the kernels launched inside the optimizer update,
-the gradient clip, the attention, SSD and RG-LRU backwards (the torch ops
-of ``ops.Attention``, ``ops.SSDScan`` and ``ops.RGLRU``), the loss's
-forward (the recompute in the backward is outside it), and a MoE model's
-FFN and its dispatch and whisper's encoder, as ``profile_serve`` names
-them: the FFN and the dispatch run again in each layer's remat recompute,
-inside the backward, and open their ranges there too; the encoder's layers
-recompute outside its range. The last line is the same as one JSON object.
-Needs a CUDA card.
+and by part of the step, each a set of the program's spans
+(:mod:`repro_torch.trace`): the kernels launched inside the optimizer
+update, the gradient clip, the attention, SSD and RG-LRU backwards (the
+torch ops of ``ops.Attention``, ``ops.SSDScan`` and ``ops.RGLRU``), the
+loss's forward (the recompute in the backward is outside it), and a MoE
+model's FFN and its dispatch and whisper's encoder, as ``profile_serve``
+names them: the FFN and the dispatch run again in each layer's remat
+recompute, inside the backward, and open their spans there too; the
+encoder's layers recompute outside its span. The last line is the same as
+one JSON object. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -39,22 +40,21 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs import cut, get_config
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
 from repro_torch.launch.profile_serve import PARTS as SERVE_PARTS
-from repro_torch.launch.profile_serve import annotated, device_time, top_kernels
+from repro_torch.launch.profile_serve import device_time, top_kernels
 from repro_torch.launch.train import train_allocator
 from repro_torch.models import build_model
-from repro_torch.training import train_step as train_step_module
 from repro_torch.training.optimizer import OptimizerConfig
 from repro_torch.training.train_step import TrainConfig, init_state, make_train_step
 from repro_torch.training.trainer import extra_fields
 
-PARTS = {  # part of the step: (module, function) whose launches it covers
-    "optimizer update": (train_step_module, "opt_update"),
-    "gradient clip": (train_step_module, "clip_by_global_norm"),
-    "attention backward": (ops, "attention_backward"),
-    "SSD backward": (ops, "ssd_backward"),
-    "RG-LRU backward": (ops, "rglru_backward"),
+PARTS = {  # part of the step: the program's spans whose launches it covers
+    "optimizer update": ("optimizer",),
+    "gradient clip": ("clip",),
+    "attention backward": ("attention.backward",),
+    "SSD backward": ("ssd.backward",),
+    "RG-LRU backward": ("rglru.backward",),
+    "loss forward": ("forward",),
     **SERVE_PARTS,  # "moe ffn", "moe dispatch", "whisper encoder"
 }
 
@@ -81,10 +81,6 @@ def profile_step(args, dev: torch.device) -> dict:
     state = init_state(model, torch.Generator(device=dev).manual_seed(0), opt)
     pipe = TokenPipeline(cfg.vocab, args.batch, args.seq, seed=0, extra_fields=extra_fields(cfg))
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()} for _ in range(3)]
-    for name, (module, attr) in PARTS.items():
-        setattr(module, attr, annotated(name, getattr(module, attr)))
-    loss = model.loss
-    model.loss = annotated("loss forward", loss)
     step = make_train_step(model, TrainConfig(opt=opt, accum_steps=args.accum))
     state, _ = step(state, batches[0])  # warm-up: kernel builds, cuBLAS, allocator, gradient buffers
     torch.cuda.synchronize()
@@ -98,7 +94,7 @@ def profile_step(args, dev: torch.device) -> dict:
         torch.cuda.synchronize()
         wall_profiled = time.perf_counter() - t0
 
-    by_group, parts = device_time(prof, {*PARTS, "loss forward"})
+    by_group, parts = device_time(prof, PARTS)
     by_part = {name: sum(groups.values()) for name, groups in parts.items()}
     busy = sum(by_group.values()) / 1e3
     out = {
@@ -107,7 +103,7 @@ def profile_step(args, dev: torch.device) -> dict:
         "wall_s": wall, "wall_profiled_s": wall_profiled, "device_busy_s": busy, "busy_share": busy / wall,
         "groups_ms": {g: v for g, v in sorted(by_group.items(), key=lambda kv: -kv[1])},
         "parts_ms": by_part,
-        "top_kernels_ms": top_kernels(prof, {*PARTS, "loss forward"}),
+        "top_kernels_ms": top_kernels(prof),
         "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     print(f"train step: {wall:.3f} s wall ({wall_profiled:.3f} s profiled), device busy {busy:.3f} s "

@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import dist as rdist
+from repro_torch import trace
 from repro_torch.dist import Axes
 from repro_torch.dist.perf import under_current_flags
 
@@ -55,6 +56,7 @@ def norm(x: torch.Tensor, scale: torch.Tensor, eps: float, kind: str) -> torch.T
 # RoPE
 # ---------------------------------------------------------------------------
 
+@trace.spanned("rope")
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
     """positions: (...,) int — returns (sin, cos) of shape (..., head_dim//2)."""
     half = head_dim // 2
@@ -218,11 +220,19 @@ def run_layer(fn, remat: bool, *args, **checkpoint_kw):
     flags and the mesh in effect now: a placed parameter is gathered again
     there, so a rank holds one layer's gathered parameters at a time.
     ``checkpoint_kw`` go to ``torch.utils.checkpoint.checkpoint`` (§Perf
-    V1's ``context_fn``)."""
+    V1's ``context_fn``). Each run of ``fn``, the recompute too, is the
+    span ``layer`` (:mod:`repro_torch.trace`)."""
     if remat:
-        return checkpoint(under_current_flags(fn), *args, use_reentrant=False, preserve_rng_state=False,
-                          **checkpoint_kw)
-    return fn(*args)
+        return checkpoint(under_current_flags(_in_layer_span), fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **checkpoint_kw)
+    return _in_layer_span(fn, *args)
+
+
+def _in_layer_span(fn, *args):
+    """``fn(*args)`` inside the span ``layer``: a plain function, so that a
+    layer makes no new function object for the garbage collector."""
+    with trace.span("layer"):
+        return fn(*args)
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import dist as rdist
+from repro_torch import trace
 from repro_torch.dist import Axes
 from repro_torch.dist.perf import perf
 from .common import glu_activation, init_truncated_normal_, sigmoid
@@ -123,6 +124,12 @@ def dispatch(top_i: torch.Tensor, top_p: torch.Tensor, E: int, C: int):
     place_sorted = torch.where(keep, sorted_e * C + pos, E * C)
     place = torch.empty_like(place_sorted).scatter_(0, sort_idx, place_sorted)  # a permutation: no index repeats
     slots = place.view(N, k).gather(1, torch.argsort(top_i, dim=1))  # a token's experts are distinct
+    if trace.recording():
+        live_slots = torch.where(overflow, C - 1, counts).sum()  # an overflowing expert loses slot 0 too
+        trace.count("moe.slots", E * C)
+        trace.count("moe.slots_live", live_slots)
+        trace.count("moe.assigned", N * k)
+        trace.count("moe.dropped", N * k - live_slots)
     return table, gates, slots
 
 
@@ -188,33 +195,36 @@ def _moe_tokens(lp: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Ten
     N = B * T
     xt = x.reshape(N, d)
 
-    # routing (fp32)
-    logits = xt.float() @ lp["router"].float()
-    probs = torch.softmax(logits, dim=-1)
-    top_p, top_i = torch.topk(probs, k, dim=-1)
-    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    with trace.span("moe.route"):  # fp32
+        logits = xt.float() @ lp["router"].float()
+        probs = torch.softmax(logits, dim=-1)
+        top_p, top_i = torch.topk(probs, k, dim=-1)
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True)
 
-    # aux load-balance loss (Switch): E · Σ_e f_e · P_e
-    P_e = probs.mean(dim=0)
-    f_e = F.one_hot(top_i, E).float().sum(dim=(0, 1)) / (N * k)
-    aux = E * (f_e * P_e).sum()
+        # aux load-balance loss (Switch): E · Σ_e f_e · P_e
+        P_e = probs.mean(dim=0)
+        f_e = F.one_hot(top_i, E).float().sum(dim=(0, 1)) / (N * k)
+        aux = E * (f_e * P_e).sum()
 
-    C = capacity(N, k, E, cfg.capacity_factor)
-    table, gates, slots = dispatch(top_i, top_p, E, C)
-    xe = torch.cat([xt, xt.new_zeros(1, d)])[table]  # (E, C, d); the pad row is zeros
+    with trace.span("moe.dispatch"):
+        C = capacity(N, k, E, cfg.capacity_factor)
+        table, gates, slots = dispatch(top_i, top_p, E, C)
+        xe = torch.cat([xt, xt.new_zeros(1, d)])[table]  # (E, C, d); the pad row is zeros
     dt = x.dtype
-    h = glu_activation(torch.bmm(xe, lp["we_gate"].to(dt)), torch.bmm(xe, lp["we_up"].to(dt)), cfg.activation)
-    ye = torch.bmm(h, lp["we_down"].to(dt)) * gates[..., None].to(dt)
+    with trace.span("moe.experts"):
+        h = glu_activation(torch.bmm(xe, lp["we_gate"].to(dt)), torch.bmm(xe, lp["we_up"].to(dt)), cfg.activation)
+        ye = torch.bmm(h, lp["we_down"].to(dt)) * gates[..., None].to(dt)
 
-    # the combine: each token's outputs added in ascending expert id
-    ye = torch.cat([ye.reshape(E * C, d), ye.new_zeros(1, d)])
-    y = ye[slots[:, 0]]
-    for j in range(1, k):
-        y = y + ye[slots[:, j]]
+    with trace.span("moe.combine"):  # each token's outputs added in ascending expert id
+        ye = torch.cat([ye.reshape(E * C, d), ye.new_zeros(1, d)])
+        y = ye[slots[:, 0]]
+        for j in range(1, k):
+            y = y + ye[slots[:, j]]
 
     if cfg.n_shared_experts:
-        hs = glu_activation(xt @ lp["ws_gate"].to(dt), xt @ lp["ws_up"].to(dt), cfg.activation)
-        ys = hs @ lp["ws_down"].to(dt)
-        g = sigmoid(xt.float() @ lp["ws_gate_scalar"].float())
-        y = y + ys * g[:, None].to(dt)
+        with trace.span("moe.shared"):
+            hs = glu_activation(xt @ lp["ws_gate"].to(dt), xt @ lp["ws_up"].to(dt), cfg.activation)
+            ys = hs @ lp["ws_down"].to(dt)
+            g = sigmoid(xt.float() @ lp["ws_gate_scalar"].float())
+            y = y + ys * g[:, None].to(dt)
     return y.reshape(B, T, d), aux.float()

@@ -33,6 +33,7 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch import dist as rdist
+from repro_torch import trace
 from repro_torch.dist import Axes
 from . import attention as attn_lib
 from .common import (
@@ -196,6 +197,7 @@ class WhisperModel(nn.Module):
         (see :func:`~.common.run_layer`)."""
         return self._enc_layer(self.enc.layer(l), x, q_chunk)
 
+    @trace.spanned("whisper.encode")
     def encode(self, enc_embeds, *, remat: bool = False, q_chunk: int = 2048) -> torch.Tensor:
         """Frame embeddings (B, S, d) → the encoder's output (B, S, d) in
         the compute dtype."""

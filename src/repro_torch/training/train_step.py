@@ -20,6 +20,7 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch import dist as rdist
+from repro_torch import trace
 from repro_torch.convert import flatten, param_tree
 from repro_torch.dist import Axes
 from repro_torch.models import build_model
@@ -101,17 +102,20 @@ def accumulate_grads(model, params: list, batch: dict, train_cfg: TrainConfig) -
     A = train_cfg.accum_steps
 
     def backward(mb) -> dict:
-        loss, metrics = model.loss(mb, remat=train_cfg.remat, q_chunk=train_cfg.q_chunk)
-        loss.backward()
+        with trace.span("forward"):
+            loss, metrics = model.loss(mb, remat=train_cfg.remat, q_chunk=train_cfg.q_chunk)
+        with trace.span("backward"):
+            loss.backward()
         return {k: v.detach() for k, v in metrics.items()}
 
     n = batch["tokens"].shape[0] // max(A, 1)
     if mesh is None:
-        run = backward
+        run = trace.spanned("microbatch")(backward)
     else:
         bspec = rdist.logical_to_spec(("batch",), (n,), mesh)[0]
         rows = rdist.shard_slice(mesh, bspec, n)
 
+        @trace.spanned("microbatch")
         def run(mb) -> dict:
             with rdist.batch_split(bspec):
                 return backward({k: v[rows] for k, v in mb.items()})
@@ -143,15 +147,19 @@ def make_train_step(model, train_cfg: TrainConfig):
     by :func:`place_state`) ``batch`` is the global batch on every rank."""
     opt_cfg = train_cfg.opt
 
+    @trace.spanned("train_step")
     def train_step(state: dict, batch: dict):
+        trace.count("train_step", 1)
         params = leaves(state["params"])
         metrics = accumulate_grads(model, params, batch, train_cfg)
         for p in params:  # a parameter that no loss reaches has a zero gradient
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
-        gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
-        _, _, lr = opt_update(opt_cfg, grads, state["opt"], params)
+        with trace.span("clip"):
+            gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
+        with trace.span("optimizer"):
+            _, _, lr = opt_update(opt_cfg, grads, state["opt"], params)
         metrics.update(grad_norm=gnorm, lr=lr)
         state["step"] = state["step"] + 1
         return state, metrics
