@@ -48,14 +48,20 @@ Run from the root of a checkout. Phases, in order; any failure exits non-zero:
    O(1) outputs and O(1) scores at its head_dim (``grad_check.shifted_qkv``,
    ``shifted_pages``), so that the bf16 tolerance is a few percent of an
    output (``--mutants`` runs these checks on each fault planted in the bf16
-   flash kernel and in paged decode, and every fault has to fail them);
+   flash kernel and in paged decode, and every fault has to fail them); the
+   MoE's two row-gather kernels (``csrc/moe_gather.cu``) bit-equal to their
+   plain versions at qwen2-moe's and granite-moe's widths in fp32 and bf16,
+   then timed at the benchmark cells' microbatches in bf16 beside
+   ``index_select``, ``index_add_`` and the ``index_put_`` accumulation that
+   advanced indexing's backward ran before them;
 4. model parity, card (kernels) against CPU (plain path), fp32, one set of
    seeded weights drawn on the card, full width cut in depth: qwen3-4b (2
    layers) with a 64-token prefill, mamba2-1.3b (2 layers) with a 512-token
    prefill (2 chunks of 256) and recurrentgemma-9b (3 layers, one RRA group)
    with a 2048-token prefill, each followed by 4 teacher-forced decode steps
    (recurrentgemma's wrap its 2048-slot ring), granite-moe-1b-a400m and
-   qwen2-moe-a2.7b (2 layers each, MoE FFN in torch ops on both sides) with
+   qwen2-moe-a2.7b (2 layers each; the MoE's dispatch and combine the row-gather
+   kernels on the card, their plain versions on the CPU) with
    a 64-token prefill, whisper-small (2 encoder and 2 decoder layers) with
    seeded frame embeddings over its 1500 positions and a 64-token prefill,
    logits compared; then the
@@ -182,7 +188,7 @@ from repro_torch import dist as rdist  # noqa: E402
 from repro_torch.configs import cut, get_config  # noqa: E402
 from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
 from repro_torch.dist.perf import PerfConfig, perf_context  # noqa: E402
-from repro_torch.kernels import _build, cost, decode_attention, ref  # noqa: E402
+from repro_torch.kernels import _build, cost, decode_attention, moe_gather, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_module  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
 from repro_torch.kernels.decode_attention import paged_decode_attention, paged_decode_partials  # noqa: E402
@@ -254,9 +260,13 @@ KERNELS = {
                        replaces="src/repro/kernels/ssd_scan.py:117"),
     "rglru_scan": dict(route="cuda", source="src/repro_torch/csrc/rglru_scan.cu",
                        replaces="src/repro/kernels/rglru_scan.py:68"),
+    # no TPU kernel: the MoE's advanced indexing and its index_put_ backward
+    "gather_rows": dict(route="cuda", source="src/repro_torch/csrc/moe_gather.cu", replaces=None),
+    "gather_sum_rows": dict(route="cuda", source="src/repro_torch/csrc/moe_gather.cu", replaces=None),
 }
 WRAPPERS = {"flash_attention": flash_attention, "paged_decode": paged_decode_attention,
-            "ssd_states": ssd_states, "ssd_output": ssd_output, "rglru_scan": rglru_scan}
+            "ssd_states": ssd_states, "ssd_output": ssd_output, "rglru_scan": rglru_scan,
+            "gather_rows": moe_gather.gather_rows, "gather_sum_rows": moe_gather.gather_sum_rows}
 
 
 def randn(rng, shape, dtype):
@@ -397,6 +407,7 @@ def phase_kernels() -> dict:
     results = phase_attention_kernels(rng)
     results.update(phase_ssd_kernels(rng))
     results.update(phase_rglru_kernel(rng))
+    results.update(phase_moe_gathers(rng))
     return results
 
 
@@ -844,6 +855,93 @@ def phase_rglru_kernel(rng) -> dict:
     return results
 
 
+# the MoE's row gathers at the benchmark cells' microbatches (qwen2-moe-a2.7b:
+# E 60, top-4, d 2048, capacity factor 1.25, bf16): {name: N}
+MOE_GATHER_SHAPES = {"train b4x512": 1024, "train b1x4096": 4096}
+MOE_GATHER_SKEW = 16.0  # router scores + linspace(skew, 0) over the experts: 83-84% of slots dead, as in the cells
+
+
+def check_equal(name, out, expect) -> float:
+    """0.0 where the kernel's output has its plain version's bits; raises otherwise."""
+    torch.cuda.synchronize()
+    if out.dtype != expect.dtype or not torch.equal(out, expect):
+        err = (out.float() - expect.float()).abs().max().item() if out.shape == expect.shape else float("inf")
+        raise AssertionError(f"{name}: kernel not bit-equal to its plain version (max|d|={err})")
+    print(f"  {name}: bit-equal")
+    return 0.0
+
+
+def moe_routing(rng, N, k, E, C, skew=MOE_GATHER_SKEW):
+    """table, slots of ``moe.dispatch`` over a skewed router, on the card."""
+    scores = torch.from_numpy(rng.normal(size=(N, E)).astype(np.float32)) + torch.linspace(skew, 0.0, E)
+    top_p, top_i = torch.topk(torch.softmax(scores, -1), k, dim=-1)
+    table, _, slots = moe.dispatch(top_i, top_p / top_p.sum(-1, keepdim=True), E, C)
+    return table.cuda(), slots.cuda()
+
+
+def phase_moe_gathers(rng) -> dict:
+    """The MoE's two row-gather kernels (``csrc/moe_gather.cu``) against
+    their plain versions, bit-equal, in fp32 and bf16 at qwen2-moe's and
+    granite-moe's widths; then timed at the cells' microbatches in bf16 with
+    83-84% of the slots dead: ``gather_rows`` (the dispatch, and the combine's
+    backward), ``gather_sum_rows`` rounding after each add (the combine) and
+    summing in fp32 (the dispatch's backward). Bound: the live rows read
+    once, every output row written, the indices read. Library yardsticks:
+    ``index_select`` over the rows with a zero row appended, and
+    ``index_add_`` of the source rows into their tokens (atomics); beside
+    them the ``index_put_`` accumulation that advanced indexing's backward
+    ran before (``index_put_ ms``)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for N, k, E, d in ((2048, 4, 60, 2048), (2048, 8, 32, 1024), (300, 4, 60, 8)):
+            C = moe.capacity(N, k, E, 1.25)
+            table, slots = moe_routing(rng, N, k, E, C, skew=4.0)
+            xt, ye = randn(rng, (N, d), dtype), randn(rng, (E * C, d), dtype)
+            tag = f"N {N}, top-{k} of {E}, C {C}, d {d} {dtype}"
+            for name, got, want in (
+                    ("gather_rows", moe_gather.gather_rows(xt, table.view(-1)), ref.gather_rows_reference(xt, table.view(-1))),
+                    ("gather_sum_rows", moe_gather.gather_sum_rows(ye, slots), ref.gather_sum_rows_reference(ye, slots)),
+                    ("gather_sum_rows fp32 sum", moe_gather.gather_sum_rows(ye, slots, True),
+                     ref.gather_sum_rows_reference(ye, slots, True))):
+                check_equal(f"{name} {tag}", got, want)
+    out = {"gather_rows": {"max_abs_err": 0.0}, "gather_sum_rows": {"max_abs_err": 0.0}}
+    dt, k, E, d = torch.bfloat16, 4, 60, 2048
+    for name, N in MOE_GATHER_SHAPES.items():
+        C = moe.capacity(N, k, E, 1.25)
+        table, slots = moe_routing(rng, N, k, E, C)
+        idx = table.view(-1)
+        xt, ye = randn(rng, (N, d), dt), randn(rng, (E * C, d), dt)
+        xp = torch.cat([xt, xt.new_zeros(1, d)])
+        live = idx < N
+        live_rows, live_places = int(torch.unique(idx[live]).numel()), int(live.sum())
+        print(f"  moe gathers, qwen2-moe-a2.7b {name}: N {N}, C {C}, E·C {E * C}, live slots {live_places} "
+              f"({100 * live_places / (E * C):.1f}%), tokens read {live_rows}, tokens that lost every expert "
+              f"{int((slots == E * C).all(1).sum())}")
+        old = lambda: torch.zeros(N + 1, d, dtype=dt, device="cuda").index_put_((idx,), ye, accumulate=True)  # noqa: E731
+        runs = (
+            ("gather_rows", "", cost.gather_rows(xt, idx, live_rows),
+             lambda: moe_gather.gather_rows(xt, idx), lambda: ref.gather_rows_reference(xt, idx),
+             lambda: torch.index_select(xp, 0, idx)),
+            ("gather_sum_rows", "", cost.gather_sum_rows(ye, slots, live_places),
+             lambda: moe_gather.gather_sum_rows(ye, slots), lambda: ref.gather_sum_rows_reference(ye, slots),
+             lambda: torch.zeros(N + 1, d, dtype=dt, device="cuda").index_add_(0, idx, ye)),
+            ("gather_sum_rows", " backward", cost.gather_sum_rows(ye, slots, live_places),
+             lambda: moe_gather.gather_sum_rows(ye, slots, True),
+             lambda: ref.gather_sum_rows_reference(ye, slots, True),
+             lambda: torch.zeros(N + 1, d, dtype=dt, device="cuda").index_add_(0, idx, ye)))
+        for kernel, part, (flops, nbytes), fn, plain, library in runs:
+            err = check_equal(f"{kernel}{part} {name}", fn(), plain())
+            bound_ms, by = bound(nbytes, flops, torch.float32)
+            print(f"  {kernel}{part} {name}, ms per call (library: index_select / index_add_), "
+                  f"bound {bound_ms:.5f} ms ({by}: {nbytes} B):")
+            t = timings(fn, plain, library)
+            if TIMED and part:
+                t["index_put_ms"] = eager_ms(old, 10, 2)  # device-bound: tens of ms a call
+                print(f"  advanced indexing's backward (index_put_ accumulate) {t['index_put_ms']:.4f} ms")
+            out[kernel][name + part] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=by, live_rows=live_rows,
+                                            **t)
+    return out
+
+
 def ssd_inputs(rng, b, t, h, p, n, dtype):
     x = randn(rng, (b, t, h, p), dtype)
     dA = -randn(rng, (b, t, h), torch.float32).abs() * 0.3
@@ -1250,8 +1348,8 @@ def mesh_train_check() -> int:
                      "V9 backward": transformer.row_parallel_einsum.backward_calls,
                      "V2": moe.moe_ffn_local.mesh_calls}
             expect = {k: 0 for k in WRAPPERS}
-            expect.update({"flash_attention": cost.train_step_launches(cfg, A, TRAIN_CFG.remat)["flash_attention"]
-                           * steps, "V9 forward": row_parallel * 2 * A * steps,
+            expect.update({k: n * steps for k, n in cost.train_step_launches(cfg, A, TRAIN_CFG.remat).items()})
+            expect.update({"V9 forward": row_parallel * 2 * A * steps,
                            "V9 backward": row_parallel * A * steps,
                            "V2": L * 2 * A * steps if cfg.family == "moe" else 0})
             cmp = compare_runs(meshed, plain)
@@ -1385,7 +1483,8 @@ def phase_grad_check(dtype: str, arch: str = "qwen3-4b", n_layers: int = 2, gate
     masters, compute in ``dtype``, one TokenPipeline batch (B 2, T 512): the
     card (the flash kernel forward, ``ops.Attention``'s backward; the SSD
     kernels' forward, ``ops.SSDScan``'s backward; the RG-LRU kernel's
-    forward, ``ops.RGLRU``'s backward; remat; a MoE model's FFN in torch
+    forward, ``ops.RGLRU``'s backward; remat; a MoE model's row gathers
+    through ``ops.MoEDispatch`` / ``MoECombine``, the rest of its FFN in torch
     ops) against the CPU (the jnp-body ports under autograd), weights drawn
     on the card and copied to the CPU (``launch/grad_check.py``). Gated at
     ``grad_check.GRAD_RTOL``, every leaf's gradient nonzero on both sides (a
@@ -2071,6 +2170,7 @@ def run_phases(name, smi, t_start, marks, results, cpu) -> int:
     # the times at another path's shapes (head_dim 256, the MoE heads, the
     # training shapes) with that path's count
     sub_paths = {"hd256": "recurrentgemma-9b", **{arch: arch for arch, *_ in MOE_HEADS},
+                 **{name: "qwen2-moe-a2.7b training" for name in MOE_GATHER_SHAPES},
                  "whisper-small": "whisper-small",
                  **{training_key(call): f"{call.split()[0]} training" for call in grad_check.FLASH_TRAIN_CALLS
                     if call != "qwen3-4b"}}

@@ -23,6 +23,7 @@ SOURCES = {
     "paged_decode": "paged_decode.cu",
     "ssd_scan": "ssd_scan.cu",
     "rglru_scan": "rglru_scan.cu",
+    "moe_gather": "moe_gather.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -99,12 +99,39 @@ def ssd_output(x, dA, C_, chunk: int) -> Cost:
                 + x.numel() * x.element_size())
 
 
+def gather_rows(src, idx, live_rows: int | None = None) -> Cost:
+    """src (M, d) through idx (R,): the rows of src read once (all M, or
+    ``live_rows`` where the caller knows how many distinct rows the indices
+    reach), idx read, the (R, d) output written. No arithmetic."""
+    row = src.shape[1] * src.element_size()
+    read = src.shape[0] if live_rows is None else live_rows
+    return Cost(0, read * row + idx.numel() * idx.element_size() + idx.shape[0] * row)
+
+
+def gather_sum_rows(src, places, live_rows: int | None = None) -> Cost:
+    """src (M, d) summed through places (N, k): k − 1 adds an output element;
+    the rows of src read once (as :func:`gather_rows`), places read, the
+    (N, d) output written."""
+    N, k = places.shape
+    d = src.shape[1]
+    read = src.shape[0] if live_rows is None else live_rows
+    return Cost(N * max(k - 1, 0) * d,
+                (read + N) * d * src.element_size() + places.numel() * places.element_size())
+
+
+# the kernels that a backward launches: {kernel: the kernel whose backward it
+# is}. The MoE's two gathers are each other's backward (``ops.MoEDispatch``,
+# ``ops.MoECombine``)
+BACKWARD_OF = {"gather_rows": "gather_sum_rows", "gather_sum_rows": "gather_rows"}
+
+
 def launches_per_call(cfg) -> dict[str, tuple[int, int]]:
     """{kernel: (launches per prefill or training forward, per decode
     call)} of a model config: one per layer of the kernel's kind (whisper:
     its encoder's self-attention, and its decoder's self- and
-    cross-attention in the forward, self and cross in decode); kernels not
-    listed launch never."""
+    cross-attention in the forward, self and cross in decode; a MoE layer:
+    the dispatch's ``gather_rows`` and the combine's ``gather_sum_rows`` in
+    both); kernels not listed launch never."""
     L = cfg.n_layers
     if cfg.family == "ssm":
         return {"ssd_states": (L, 0), "ssd_output": (L, 0)}
@@ -113,19 +140,28 @@ def launches_per_call(cfg) -> dict[str, tuple[int, int]]:
         return {"rglru_scan": (L - n_attn, 0), "flash_attention": (n_attn, 0), "paged_decode": (0, n_attn)}
     if cfg.family == "audio":
         return {"flash_attention": (cfg.enc_layers + 2 * L, 0), "paged_decode": (0, 2 * L)}
+    if cfg.family == "moe":
+        return {"flash_attention": (L, 0), "paged_decode": (0, L), "gather_rows": (L, L), "gather_sum_rows": (L, L)}
     return {"flash_attention": (L, 0), "paged_decode": (0, L)}
 
 
 def train_step_launches(cfg, accum_steps: int, remat: bool) -> dict[str, int]:
     """{kernel: launches in one train step of ``accum_steps`` microbatches}:
     each layer's kernel once in every microbatch's forward and, under
-    ``remat``, once more when the backward recomputes the layer. The
-    backwards (``ops.Attention``, ``SSDScan``, ``RGLRU``) launch none. Every
-    layer is a remat region of its own, whisper's encoder layers too, so the
-    encoder's, the decoder's self- and its cross-attention calls all come
-    twice a microbatch; kernels not listed launch never."""
+    ``remat``, once more when the backward recomputes the layer; and once a
+    microbatch in the backward of each forward call whose backward is a
+    kernel (:data:`BACKWARD_OF`). The other backwards (``ops.Attention``,
+    ``SSDScan``, ``RGLRU``) launch none. Every layer is a remat region of its
+    own, whisper's encoder layers too, so the encoder's, the decoder's self-
+    and its cross-attention calls all come twice a microbatch; kernels not
+    listed launch never."""
     passes = 2 if remat else 1
-    return {k: n * passes * accum_steps for k, (n, _) in launches_per_call(cfg).items() if n}
+    per_call = launches_per_call(cfg)
+    out = {k: n * passes * accum_steps for k, (n, _) in per_call.items() if n}
+    for k, fwd in BACKWARD_OF.items():
+        if per_call.get(fwd, (0, 0))[0]:
+            out[k] = out.get(k, 0) + per_call[fwd][0] * accum_steps
+    return out
 
 
 def rglru_scan(x, r, i, lam, h0=None) -> Cost:

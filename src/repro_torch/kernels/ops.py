@@ -7,10 +7,13 @@ and dtypes) and counts the kernel's work (:mod:`.cost`) in the active tally,
 as the CUDA route does while one is active. There is no flag and no
 fallback: a CUDA launch that fails raises.
 
-The CUDA kernels have no backward. Attention, the SSD scan and the RG-LRU
-get one in :class:`Attention`, :class:`SSDScan` and :class:`RGLRU`: the
-kernel's forward, the gradient in torch ops (:func:`attention_backward`,
-:func:`ssd_backward`, :func:`rglru_backward`). The bare entry points raise on
+A CUDA kernel has no backward of its own. Attention, the SSD scan and the
+RG-LRU get one in :class:`Attention`, :class:`SSDScan` and :class:`RGLRU`:
+the kernel's forward, the gradient in torch ops (:func:`attention_backward`,
+:func:`ssd_backward`, :func:`rglru_backward`). The MoE's two row gathers are
+each other's backward: :class:`MoEDispatch` and :class:`MoECombine` run
+:func:`gather_rows` one way and :func:`gather_sum_rows` the other, through
+the inverse routing maps, on every device. The bare entry points raise on
 CUDA when autograd would record them, rather than return a tensor with no
 ``grad_fn``, and paged decode has no Function (decode serves and does not
 train); the CPU versions are plain torch ops and differentiate, and the meta
@@ -21,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import trace
-from . import cost, ref
+from . import cost, moe_gather, ref
 from .decode_attention import paged_decode_attention
 from .flash_attention import attention_backward, flash_attention
 from .rglru_scan import rglru_scan
@@ -209,3 +212,87 @@ class RGLRU(torch.autograd.Function):
     @trace.spanned("rglru.backward")
     def backward(ctx, dy, dh):
         return rglru_backward(*_grad_leaves(ctx, ctx.saved_tensors), dy, dh)
+
+
+def gather_rows(src, idx):
+    """src (M, d), idx (R,) int64 in [0, M] → (R, d) in src's dtype:
+    ``src[idx[r]]``, zeros where ``idx[r] == M``."""
+    if src.is_meta:
+        cost.record("gather_rows", cost.gather_rows(src, idx))
+        return _empty((idx.shape[0], src.shape[1]), src.dtype, src)
+    if src.is_cuda:
+        _no_autograd("row gather", "train through ops.MoEDispatch / ops.MoECombine (models/moe.py)", src)
+        if cost.counting():
+            cost.record("gather_rows", cost.gather_rows(src, idx))
+        return moe_gather.gather_rows(src, idx)
+    return ref.gather_rows_reference(src, idx)
+
+
+def gather_sum_rows(src, places, fp32_sum: bool = False):
+    """src (M, d), places (N, k) int64 in [0, M] → (N, d) in src's dtype:
+    ``Σ_j src[places[n, j]]`` in j order, a place M adding nothing; rounded
+    after each add, or with ``fp32_sum`` summed in fp32 and rounded once."""
+    if src.is_meta:
+        cost.record("gather_sum_rows", cost.gather_sum_rows(src, places))
+        return _empty((places.shape[0], src.shape[1]), src.dtype, src)
+    if src.is_cuda:
+        _no_autograd("row gather", "train through ops.MoEDispatch / ops.MoECombine (models/moe.py)", src)
+        if cost.counting():
+            cost.record("gather_sum_rows", cost.gather_sum_rows(src, places))
+        return moe_gather.gather_sum_rows(src, places, fp32_sum)
+    return ref.gather_sum_rows_reference(src, places, fp32_sum)
+
+
+def count_rows(places, M: int) -> None:
+    """While a profiler records, the counters ``moe.rows_gathered`` (places
+    that are rows of the source: the rows a gather copies) and
+    ``moe.rows_zeroed`` (rows of ``places`` (R, j) with none: output rows
+    written as zeros without a read) of one gather through ``places``."""
+    if trace.recording():
+        live = places < M
+        trace.count("moe.rows_gathered", live.sum())
+        trace.count("moe.rows_zeroed", (~live.any(dim=1)).sum())
+
+
+class MoEDispatch(torch.autograd.Function):
+    """The MoE's dispatch: xt (N, d) through table (E, C) of token ids (N
+    where a slot is dead) → xe (E, C, d), dead slots zero
+    (:func:`gather_rows`). Its backward sums each token's slots through the
+    inverse map, slots (N, k) of places in the flattened ``E·C`` outputs
+    (``E·C`` where the token lost an expert): ``d_xt[n] = Σ_j
+    d_xe[slots[n, j]]`` in ascending expert id, in fp32, rounded once
+    (:func:`gather_sum_rows`). It saves slots only."""
+
+    @staticmethod
+    def forward(ctx, xt, table, slots):
+        ctx.save_for_backward(slots)
+        E, C = table.shape
+        return gather_rows(xt, table.reshape(E * C)).view(E, C, xt.shape[1])
+
+    @staticmethod
+    def backward(ctx, d_xe):
+        (slots,) = ctx.saved_tensors
+        E, C, d = d_xe.shape
+        count_rows(slots, E * C)
+        return gather_sum_rows(d_xe.reshape(E * C, d), slots, fp32_sum=True), None, None
+
+
+class MoECombine(torch.autograd.Function):
+    """The MoE's combine: ye (E, C, d) through slots (N, k) → y (N, d), each
+    token's outputs added in ascending expert id and rounded after each add
+    (:func:`gather_sum_rows`). Its backward gathers through the inverse map,
+    table (E, C): ``d_ye[e, c] = dy[table[e, c]]``, zero at a dead slot
+    (:func:`gather_rows`). It saves table only."""
+
+    @staticmethod
+    def forward(ctx, ye, slots, table):
+        ctx.save_for_backward(table)
+        E, C, d = ye.shape
+        return gather_sum_rows(ye.reshape(E * C, d), slots)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (table,) = ctx.saved_tensors
+        E, C = table.shape
+        count_rows(table.reshape(E * C, 1), dy.shape[0])
+        return gather_rows(dy, table.reshape(E * C)).view(E, C, dy.shape[1]), None, None

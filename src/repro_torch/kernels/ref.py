@@ -244,3 +244,33 @@ def rglru_chunked_reference(x, r, i, lam, h0=None, chunk: int = 64, sub: int | N
         ys.append(h)
     y = torch.stack(ys, dim=3).reshape(B, nc * chunk, W)
     return y[:, :T].to(x.dtype), y[:, -1].clone()  # steps past T leave h as it was at T - 1
+
+
+def _padded(src: torch.Tensor) -> torch.Tensor:
+    """src (M, d) with a row of zeros appended at index M, the pad index."""
+    return torch.cat([src, src.new_zeros(1, src.shape[1])])
+
+
+def gather_rows_reference(src, idx):
+    """src (M, d), idx (R,) int64 in [0, M] → (R, d): ``src[idx[r]]``, zeros
+    where ``idx[r] == M``."""
+    return _padded(src)[idx]
+
+
+def gather_sum_rows_reference(src, places, fp32_sum: bool = False):
+    """src (M, d), places (N, k) int64 in [0, M] → (N, d): ``Σ_j
+    src[places[n, j]]`` in j order, a place M adding a zero row. Rounded to
+    src's dtype after each add as ``y = y + src[places[:, j]]`` does, or with
+    ``fp32_sum`` summed from zero in fp32 (src's dtype where wider) and
+    rounded once."""
+    if fp32_sum:
+        rows = _padded(src.to(torch.promote_types(src.dtype, torch.float32)))
+        out = rows.new_zeros(places.shape[0], src.shape[1])
+        for j in range(places.shape[1]):
+            out = out + rows[places[:, j]]
+        return out.to(src.dtype)
+    rows = _padded(src)
+    out = rows[places[:, 0]]
+    for j in range(1, places.shape[1]):
+        out = out + rows[places[:, j]]
+    return out

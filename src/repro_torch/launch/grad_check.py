@@ -17,8 +17,9 @@ in the given dtype, one TokenPipeline batch (B 2, T 512; whisper's with its
 non-causal, cross-attention at T 512 against S 1500), the SSD kernels'
 forward and ``ops.SSDScan``'s backward (mamba2), the RG-LRU kernel's forward
 and ``ops.RGLRU``'s backward (recurrentgemma), and for a MoE config the MoE
-FFN in torch ops with the router's gradient through the gates and the aux
-loss; the CPU runs the jnp-body ports under autograd (the SSD's chunked
+FFN (its dispatch and combine the row-gather kernels of ``ops.MoEDispatch``
+and ``ops.MoECombine``, each the other's backward) with the router's
+gradient through the gates and the aux loss; the CPU runs the jnp-body ports under autograd (the SSD's chunked
 body, the RG-LRU's sequential plain version). Both take one set of weights,
 drawn on the card and copied to the CPU. A reading is the loss |Δ| and, per
 leaf, the max|Δ| of the gradient over that leaf's max|g| on the CPU.

@@ -43,6 +43,7 @@ GROUPS = [  # (group, substrings of the kernel name), first match wins
     ("ssd_states kernel", ("ssd_states_mma_kernel", "ssd_states_kernel")),  # bf16, fp32
     ("ssd_output kernel", ("ssd_output_mma_kernel", "ssd_output_kernel")),
     ("rglru_scan kernel", ("rglru_chunk_kernel",)),
+    ("moe_gather kernels", ("gather_rows_kernel", "gather_sum_rows_kernel")),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "xmma", "splitk", "cublas", "nvjet")),
     ("copy/fill", ("memcpy", "memset", "copy", "fill")),
     ("reduction", ("reduce",)),

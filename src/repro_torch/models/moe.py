@@ -22,6 +22,12 @@ Two rules are written out where the reference leaves them to its scatters:
   in that order, one after another, with no atomics: the result is the same
   bits in every call.
 
+The dispatch's gather and the combine's sums run through
+``kernels.ops.MoEDispatch`` and ``MoECombine``: ``dispatch``'s ``table`` and
+``slots`` are inverse maps, so each one's backward is the other's forward, a
+row gather (a hand-written kernel on the card) with no accumulation into a
+shared row, and no pad row is appended.
+
 §Perf V2 (:func:`moe_ffn_local`): under a mesh whose data dims split the
 batch, each data rank routes its own batch shard through the same body, its
 capacity taken from its local token count, and the ranks average the aux
@@ -39,6 +45,7 @@ from repro_torch import dist as rdist
 from repro_torch import trace
 from repro_torch.dist import Axes
 from repro_torch.dist.perf import perf
+from repro_torch.kernels import ops
 from .common import glu_activation, init_truncated_normal_, sigmoid
 
 
@@ -130,6 +137,11 @@ def dispatch(top_i: torch.Tensor, top_p: torch.Tensor, E: int, C: int):
         trace.count("moe.slots_live", live_slots)
         trace.count("moe.assigned", N * k)
         trace.count("moe.dropped", N * k - live_slots)
+        # the forward's gathers (the backward's count in ops.MoEDispatch / MoECombine): the
+        # dispatch copies the live slots' tokens and zeroes the dead slots; the combine sums
+        # the live slots and zeroes the tokens that lost every expert
+        trace.count("moe.rows_gathered", 2 * live_slots)
+        trace.count("moe.rows_zeroed", E * C - live_slots + (slots == E * C).all(dim=1).sum())
     return table, gates, slots
 
 
@@ -209,17 +221,14 @@ def _moe_tokens(lp: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Ten
     with trace.span("moe.dispatch"):
         C = capacity(N, k, E, cfg.capacity_factor)
         table, gates, slots = dispatch(top_i, top_p, E, C)
-        xe = torch.cat([xt, xt.new_zeros(1, d)])[table]  # (E, C, d); the pad row is zeros
+        xe = ops.MoEDispatch.apply(xt, table, slots)  # (E, C, d); a dead slot's row is zeros
     dt = x.dtype
     with trace.span("moe.experts"):
         h = glu_activation(torch.bmm(xe, lp["we_gate"].to(dt)), torch.bmm(xe, lp["we_up"].to(dt)), cfg.activation)
         ye = torch.bmm(h, lp["we_down"].to(dt)) * gates[..., None].to(dt)
 
     with trace.span("moe.combine"):  # each token's outputs added in ascending expert id
-        ye = torch.cat([ye.reshape(E * C, d), ye.new_zeros(1, d)])
-        y = ye[slots[:, 0]]
-        for j in range(1, k):
-            y = y + ye[slots[:, j]]
+        y = ops.MoECombine.apply(ye, slots, table)
 
     if cfg.n_shared_experts:
         with trace.span("moe.shared"):

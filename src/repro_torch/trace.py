@@ -40,10 +40,15 @@ Counters:
 
 - ``train_step``: the train steps counted;
 - ``moe.slots``: the expert slots (E·C) of each dispatch;
-- ``moe.slots_live``: the slots that hold a token (the rest read the pad row
-  and are multiplied all the same);
+- ``moe.slots_live``: the slots that hold a token (the rest are rows of
+  zeros, multiplied all the same);
 - ``moe.assigned``: the routed (token, expert) entries (N·k);
-- ``moe.dropped``: the routed entries that got no slot.
+- ``moe.dropped``: the routed entries that got no slot;
+- ``moe.rows_gathered``: the rows the MoE's two gather kernels copy, in the
+  forward (``models.moe.dispatch``) and in the backward
+  (``kernels.ops.MoEDispatch``, ``MoECombine``);
+- ``moe.rows_zeroed``: the output rows they write as zeros without a read
+  (dead slots, tokens that lost every expert).
 
 A layer's recompute under remat counts again, as its spans open again.
 """

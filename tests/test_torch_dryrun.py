@@ -321,7 +321,8 @@ def test_step_probe_tracks_live_bytes():
 def test_meta_train_step_counts_accum_microsteps(arch):
     """A whole meta train step at 2 microbatches counts exactly twice the
     dry run's microstep (the optimizer adds no counted FLOP), each flash call
-    of the forward and of the remat recompute counted once."""
+    of the forward and of the remat recompute counted once, and a MoE
+    layer's gathers in the backward too."""
     cfg = get_config(arch).reduced()
     cell = ShapeCell("t", 64, 4, "train")
     mesh = MeshLayout((1, 1), ("data", "model"))
@@ -333,7 +334,9 @@ def test_meta_train_step_counts_accum_microsteps(arch):
     whole = dryrun.count_step(lambda: make_train_step(model, tc)(state, batch))
     assert rec["cost"]["flops_per_device"] == whole["flops"] > 0
     n_attn = cfg.n_layers + (cfg.enc_layers + cfg.n_layers if cfg.family == "audio" else 0)
-    assert whole["kernel_calls"] == {"flash_attention": n_attn * 2 * 2}
+    # a MoE layer's two gathers: forward, recompute, and each the other's backward
+    gathers = {"gather_rows": cfg.n_layers * 3 * 2, "gather_sum_rows": cfg.n_layers * 3 * 2}
+    assert whole["kernel_calls"] == {"flash_attention": n_attn * 2 * 2, **(gathers if cfg.family == "moe" else {})}
     params = sum(p.numel() * 4 for _, p in leaves_with_paths(state["params"]))
     assert rec["memory"]["argument_bytes"] == 3 * params + 4 + 4 + 2 * 4 * 64 * 8 + (
         4 * cfg.enc_len * cfg.d_model * 2 if cfg.family == "audio" else 0)
@@ -354,7 +357,8 @@ def test_train_step_launches_are_the_meta_step_s(arch, remat, full):
     counts to) equals the kernel calls that a whole train step of 2
     microbatches counts on the meta device, which takes the card's route:
     whisper's encoder, self- and cross-attention each once in a forward and
-    once in a remat recompute, the backwards none."""
+    once in a remat recompute, the backwards none but the MoE's, whose two
+    gathers are each other's backward."""
     cfg = get_config(arch) if full else get_config(arch).reduced()
     cell = ShapeCell("t", 512 if full else 64, 4, "train")
     tc = TrainConfig(opt=OptimizerConfig(), accum_steps=2, remat=remat)
@@ -372,14 +376,19 @@ def test_launches_per_call_by_family():
     """One launch per layer of the kernel's kind: recurrentgemma-9b's 38
     layers are 26 RG-LRU and 12 local attention; whisper-small prefills
     through its 12 encoder and 2 × 12 decoder attention layers and decodes
-    over the self and cross caches."""
+    over the self and cross caches; a MoE layer gathers and sums rows in
+    every call, and once more each in a train step's backward."""
     assert cost.launches_per_call(get_config("recurrentgemma-9b")) == {
         "rglru_scan": (26, 0), "flash_attention": (12, 0), "paged_decode": (0, 12)}
     assert cost.launches_per_call(get_config("whisper-small")) == {"flash_attention": (36, 0),
                                                                    "paged_decode": (0, 24)}
     assert cost.launches_per_call(get_config("mamba2-1.3b")) == {"ssd_states": (48, 0), "ssd_output": (48, 0)}
     assert cost.launches_per_call(get_config("qwen2-moe-a2.7b")) == {"flash_attention": (24, 0),
-                                                                     "paged_decode": (0, 24)}
+                                                                     "paged_decode": (0, 24),
+                                                                     "gather_rows": (24, 24),
+                                                                     "gather_sum_rows": (24, 24)}
+    assert cost.train_step_launches(get_config("qwen2-moe-a2.7b"), 2, True) == {
+        "flash_attention": 96, "gather_rows": 144, "gather_sum_rows": 144}
     assert cost.train_step_launches(get_config("whisper-small"), 2, True) == {"flash_attention": 144}
 
 
@@ -506,7 +515,7 @@ def test_cli_cells_render_in_roofline(tmp_path, capsys):
         assert len(r["aten_ops"]) == 15 and r["collectives"]["basis"] == "analytic"
     kernels = {r["arch"]: r["cost"]["kernel_calls_microstep"] for r in recs if r["status"] == "ok"}
     assert set(kernels["mamba2-1.3b"]) == set() and set(kernels["recurrentgemma-9b"]) == {"paged_decode"}
-    assert set(kernels["granite-moe-1b-a400m"]) == {"flash_attention"}
+    assert set(kernels["granite-moe-1b-a400m"]) == {"flash_attention", "gather_rows", "gather_sum_rows"}
     table = roofline.render(recs)
     assert all(arch in table for arch, _ in CLI_CELLS) and "ERR" not in table and "skip" in table
     rec = json.loads((tmp_path / "qwen3-4b__train_4k__pod16x16.json").read_text())

@@ -970,6 +970,102 @@ def test_moe_ffn_on_card_matches_cpu(cuda, arch, cf, T, dtype):
         assert (table[:, 0] == T).any()  # an overflowing expert gave up its slot 0
 
 
+# (N, k, E, d): qwen2-moe's routing at the benchmark cells' microbatches (4 ×
+# 512 in 2 microbatches: N 1024 a layer; 1 × 4096) and N 2048, and
+# granite-moe's (32 experts top-8 at d 1024); capacity factor 1.25
+GATHER_CASES = [(2048, 4, 60, 2048), (4096, 4, 60, 2048), (1024, 4, 60, 2048), (2048, 8, 32, 1024)]
+
+
+def _gather_case(N, k, E, d, dtype, seed=0):
+    """A routing skewed as a router at its initial weights over zipf ids
+    (most slots dead, most routed entries dropped), from ``moe.dispatch``;
+    rows drawn on the CPU."""
+    rng = np.random.default_rng(seed)
+    scores = torch.from_numpy(rng.normal(size=(N, E)).astype(np.float32)) + torch.linspace(4.0, 0.0, E)
+    top_p, top_i = torch.topk(torch.softmax(scores, -1), k, dim=-1)
+    C = moe.capacity(N, k, E, 1.25)
+    table, _, slots = moe.dispatch(top_i, top_p / top_p.sum(-1, keepdim=True), E, C)
+    xt, dy = _randn(rng, (N, d), dtype, "cpu"), _randn(rng, (N, d), dtype, "cpu")
+    ye, d_xe = _randn(rng, (E, C, d), dtype, "cpu"), _randn(rng, (E, C, d), dtype, "cpu")
+    return table, slots, xt, ye, dy, d_xe
+
+
+def _gather_grads(table, slots, xt, ye, dy, d_xe, device):
+    """(xe, y, d_xt, d_ye) of ``ops.MoEDispatch`` / ``MoECombine`` on ``device``."""
+    to = lambda t: t.detach().to(device, copy=True)  # noqa: E731
+    a, b = to(xt).requires_grad_(), to(ye).requires_grad_()
+    xe, y = ops.MoEDispatch.apply(a, to(table), to(slots)), ops.MoECombine.apply(b, to(slots), to(table))
+    torch.autograd.backward([xe, y], [to(d_xe), to(dy)])
+    return [t.detach().cpu() for t in (xe, y, a.grad, b.grad)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("N,k,E,d", GATHER_CASES)
+def test_moe_gathers_match_the_cpu_route(cuda, N, k, E, d, dtype):
+    """The two row-gather kernels through ``ops.MoEDispatch`` /
+    ``MoECombine`` against the same Functions on the CPU (the plain
+    versions): the forwards bit-equal (the combine rounds after each add, as
+    the CPU's), the backwards bit-equal or within one ulp in bf16 (an fp32 sum
+    rounded once on both sides)."""
+    case = _gather_case(N, k, E, d, dtype)
+    table, slots = case[:2]
+    assert (table == N).float().mean() > 0.5 and (slots == table.numel()).any()
+    from repro_torch.kernels import moe_gather
+
+    before = (moe_gather.gather_rows.launches, moe_gather.gather_sum_rows.launches)
+    got = _gather_grads(*case, cuda)
+    assert (moe_gather.gather_rows.launches, moe_gather.gather_sum_rows.launches) == (before[0] + 2, before[1] + 2)
+    want = _gather_grads(*case, torch.device("cpu"))
+    xe, y, d_xt, d_ye = got
+    assert torch.equal(xe, want[0]) and torch.equal(y, want[1]) and torch.equal(d_ye, want[3])
+    if dtype == "float32":
+        assert torch.equal(d_xt, want[2])
+    else:
+        ulp = 2.0 ** (torch.floor(torch.log2(want[2].float().abs().clamp(min=2.0**-126))) - 7)
+        assert ((d_xt.float() - want[2].float()).abs() <= ulp).all()
+    assert torch.equal(_gather_grads(*case, cuda)[2], d_xt)  # the same bits again: no atomics
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1020, 2044, 12])
+def test_moe_gathers_raise_on_a_width_not_a_multiple_of_8(cuda, d):
+    from repro_torch.kernels import moe_gather
+
+    src = torch.zeros(4, d, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        moe_gather.gather_rows(src, torch.zeros(3, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        moe_gather.gather_sum_rows(src, torch.zeros(3, 2, dtype=torch.int64, device=cuda))
+
+
+@pytest.mark.gpu
+def test_moe_train_step_has_no_sorting_index_backward(cuda):
+    """A profiled qwen2-moe training step (full width, 2 layers, bf16
+    compute, remat, 2 × 512 tokens): the MoE gathers' kernels run forward and
+    backward, and PyTorch's ``indexing_backward_kernel`` (the accumulating
+    ``index_put_`` behind advanced indexing's backward) never runs over bf16
+    rows (the fp32 gates' gathers in ``dispatch`` keep theirs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), n_layers=2)
+    model = build_model(cfg, cuda)
+    opt = OptimizerConfig(warmup_steps=1)
+    state = init_state(model, torch.Generator(device=cuda).manual_seed(0), opt)
+    step = make_train_step(model, TrainConfig(opt=opt, accum_steps=1, remat=True))
+    tokens = torch.randint(1, cfg.vocab, (2, 513), device=cuda, generator=torch.Generator(device=cuda).manual_seed(2))
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    state, _ = step(state, batch)  # builds the kernels
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert torch.isfinite(metrics["loss"])
+    assert not [n for n in names if "indexing_backward_kernel" in n and "BFloat16" in n], names
+    assert any("gather_rows_kernel" in n for n in names) and any("gather_sum_rows_kernel" in n for n in names), names
+
+
 # ---------------------------------------------------------------------------
 # the distribution layer on one card: a 1-rank NCCL group (gloo beside it
 # for CPU tensors) and a (1, 1) DeviceMesh, as chip_smoke.py's phase mesh
@@ -1130,8 +1226,11 @@ def test_cuda_route_counts_as_the_meta_route(cuda):
     rx = _randn(rng, (2, 100, 256), "bfloat16", cuda)
     rr, ri = torch.sigmoid(rx), torch.sigmoid(rx.flip(1))
     lam = torch.linspace(0.5, 4.0, 256, device=cuda)
+    rows = _randn(rng, (40, 64), "bfloat16", cuda)
+    idx = torch.from_numpy(rng.integers(0, 41, size=(70,))).to(cuda)
     calls = [(ops.attention, (q, k, v), {"window": 40}), (ops.paged_decode, (pq, pk, pv, table, lengths), {}),
-             (ops.ssd_scan, (x, dA, B_, C_, 256), {}), (ops.rglru, (rx, rr, ri, lam), {})]
+             (ops.ssd_scan, (x, dA, B_, C_, 256), {}), (ops.rglru, (rx, rr, ri, lam), {}),
+             (ops.gather_rows, (rows, idx), {}), (ops.gather_sum_rows, (rows, idx.view(35, 2)), {})]
     for fn, args, kw in calls:
         with cost.tally() as on_card:
             got = fn(*args, **kw)

@@ -4,7 +4,10 @@ reference's init, converted), same seeded inputs, y and the aux loss, at the
 prefill and decode (N = 1) shapes of both MoE configs, reduced, in fp32 and
 bf16; then an input that overflows the experts' capacity, where the
 reference's dispatch also drops the token in slot 0 of every overflowing
-expert, and the port must do the same."""
+expert, and the port must do the same; and the dispatch and combine
+Functions (``kernels.ops.MoEDispatch`` / ``MoECombine``) against the
+advanced-indexing expressions they replaced, forward and backward, on the
+meta device and under gradcheck."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +19,7 @@ from repro.models import build_model as ref_build_model
 from repro.models import moe as jmoe
 from repro_torch.configs import get_config
 from repro_torch.convert import flatten, param_tree, params_from_jax, tensor_to_numpy
+from repro_torch.kernels import ops
 from repro_torch.models import build_model, moe
 from repro_torch.tree import tree_map
 
@@ -157,3 +161,145 @@ def test_combine_is_bit_equal_across_calls():
     x = torch.from_numpy(np.random.default_rng(3).normal(size=(1, 256, cfg.d_model)).astype(np.float32))
     a, b = moe.moe_ffn(tlp, x.bfloat16(), cfg), moe.moe_ffn(tlp, x.bfloat16(), cfg)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+# ---------------------------------------------------------------------------
+# the dispatch and combine Functions (kernels.ops.MoEDispatch / MoECombine)
+# against the advanced-indexing expressions they replaced
+# ---------------------------------------------------------------------------
+
+# (N, k, E, capacity_factor): qwen2-moe's and granite-moe's routing at N 256,
+# and capacity_factor 0.3, where every expert overflows and loses slot 0
+ROUTING = [(256, 4, 60, 1.25), (256, 8, 32, 1.25), (256, 2, 4, 0.3)]
+GATHER_D = 64
+
+
+def _routing(N, k, E, C, seed=0):
+    """table, slots of ``moe.dispatch`` over a skewed router (a few experts
+    take most tokens, so some slots die and some entries drop)."""
+    g = torch.Generator().manual_seed(seed)
+    scores = torch.randn(N, E, generator=g) + torch.linspace(3.0, 0.0, E)
+    top_p, top_i = torch.topk(torch.softmax(scores, -1), k, dim=-1)
+    table, _, slots = moe.dispatch(top_i, top_p / top_p.sum(-1, keepdim=True), E, C)
+    return table, slots
+
+
+def _old_dispatch(xt, table):
+    return torch.cat([xt, xt.new_zeros(1, xt.shape[1])])[table]
+
+
+def _old_combine(ye, slots):
+    E, C, d = ye.shape
+    ye = torch.cat([ye.reshape(E * C, d), ye.new_zeros(1, d)])
+    y = ye[slots[:, 0]]
+    for j in range(1, slots.shape[1]):
+        y = y + ye[slots[:, j]]
+    return y
+
+
+def _gather_inputs(N, k, E, cf, dtype, seed=0):
+    C = moe.capacity(N, k, E, cf)
+    table, slots = _routing(N, k, E, C, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    xt = torch.randn(N, GATHER_D, generator=g).to(DTYPES[dtype][1])
+    ye = torch.randn(E, C, GATHER_D, generator=g).to(DTYPES[dtype][1])
+    return table, slots, xt, ye
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("N,k,E,cf", ROUTING)
+def test_dispatch_and_combine_forward_equal_advanced_indexing(N, k, E, cf, dtype):
+    """The Functions' forwards give the bits of ``cat([xt, 0])[table]`` and of
+    ``y = ye[slots[:, 0]]; y = y + ye[slots[:, j]]``; the routing has dead
+    slots and dropped entries (and in the last case overflowing experts)."""
+    table, slots, xt, ye = _gather_inputs(N, k, E, cf, dtype)
+    C = table.shape[1]
+    assert (table == N).any() and (slots == E * C).any()
+    if cf < 1:
+        assert (table[:, 0] == N).any()  # an expert overflowed and gave up slot 0
+    xe = ops.MoEDispatch.apply(xt, table, slots)
+    y = ops.MoECombine.apply(ye, slots, table)
+    assert xe.shape == (E, C, GATHER_D) and y.shape == (N, GATHER_D)
+    assert xe.dtype == y.dtype == xt.dtype
+    assert torch.equal(xe, _old_dispatch(xt, table))
+    assert torch.equal(y, _old_combine(ye, slots))
+
+
+def _bf16_rounding(ref):
+    """Half a bf16 ulp of each element of the fp32 ``ref``: one rounding."""
+    exp = torch.floor(torch.log2(ref.abs().clamp(min=2.0**-126)))
+    return 2.0 ** (exp - 8)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("N,k,E,cf", ROUTING)
+def test_dispatch_and_combine_backward_match_autograd(N, k, E, cf, dtype):
+    """The backwards (each the other Function's gather through the inverse
+    map) against autograd through the old expressions (their ``index_put_``
+    accumulation): within 1e-6 in fp32; in bf16 within one rounding of the
+    old expressions' gradient taken in fp32, as the card's ``index_put_``
+    sums in fp32 and rounds once (the CPU's rounds after every add)."""
+    table, slots, xt, ye = _gather_inputs(N, k, E, cf, dtype)
+    g = torch.Generator().manual_seed(7)
+    d_xe = torch.randn(table.shape + (GATHER_D,), generator=g).to(xt.dtype)
+    dy = torch.randn(N, GATHER_D, generator=g).to(xt.dtype)
+
+    def grads(dispatch_fn, combine_fn, dt):
+        a, b = (t.to(dt, copy=True).requires_grad_() for t in (xt, ye))
+        torch.autograd.backward([dispatch_fn(a), combine_fn(b)], [d_xe.to(dt), dy.to(dt)])
+        return a.grad, b.grad
+
+    new_dx, new_dye = grads(lambda a: ops.MoEDispatch.apply(a, table, slots),
+                            lambda b: ops.MoECombine.apply(b, slots, table), xt.dtype)
+    old_dx, old_dye = grads(lambda a: _old_dispatch(a, table), lambda b: _old_combine(b, slots), torch.float32)
+    assert new_dx.dtype == xt.dtype and new_dye.dtype == ye.dtype
+    assert torch.equal(new_dye, old_dye.to(ye.dtype))  # a gather: no sum
+    if dtype == "float32":
+        torch.testing.assert_close(new_dx, old_dx, rtol=0, atol=1e-6)
+    else:
+        assert ((new_dx.float() - old_dx).abs() <= _bf16_rounding(old_dx)).all()
+    live = slots < table.numel()
+    assert (new_dx[~live.any(1)] == 0).all()  # a token that lost every expert gets no gradient
+
+
+@pytest.mark.parametrize("which", ["dispatch", "combine", "both"])
+def test_dispatch_and_combine_gradcheck(which):
+    """``torch.autograd.gradcheck`` in fp64 on a small routing with dead
+    slots, dropped entries and an overflowing expert (C 6 < its count)."""
+    N, k, E, C = 16, 2, 3, 6
+    table, slots = _routing(N, k, E, C, seed=4)
+    assert (table == N).any() and (slots == E * C).any() and (table[:, 0] == N).any()
+    g = torch.Generator().manual_seed(5)
+    xt = torch.randn(N, 4, generator=g, dtype=torch.float64, requires_grad=True)
+    ye = torch.randn(E, C, 4, generator=g, dtype=torch.float64, requires_grad=True)
+    fns = {"dispatch": (lambda a: ops.MoEDispatch.apply(a, table, slots), (xt,)),
+           "combine": (lambda b: ops.MoECombine.apply(b, slots, table), (ye,)),
+           "both": (lambda a: ops.MoECombine.apply(ops.MoEDispatch.apply(a, table, slots).sin(), slots, table),
+                    (xt,))}
+    fn, inputs = fns[which]
+    assert torch.autograd.gradcheck(fn, inputs)
+
+
+def test_gathers_on_meta_give_shapes_and_count_bytes():
+    """The meta route: outputs of the CPU route's shapes and dtypes, and one
+    call of each kernel in the tally, forward and backward, with the bytes of
+    ``cost.gather_rows`` / ``gather_sum_rows``."""
+    from repro_torch.kernels import cost
+
+    N, k, E, cf = ROUTING[0]
+    table, slots, xt, ye = _gather_inputs(N, k, E, cf, "bfloat16")
+    want_xe, want_y = ops.MoEDispatch.apply(xt, table, slots), ops.MoECombine.apply(ye, slots, table)
+    m = {name: t.to("meta") for name, t in dict(table=table, slots=slots, xt=xt, ye=ye).items()}
+    a, b = m["xt"].requires_grad_(), m["ye"].requires_grad_()
+    with cost.tally() as tal:
+        xe, y = ops.MoEDispatch.apply(a, m["table"], m["slots"]), ops.MoECombine.apply(b, m["slots"], m["table"])
+        assert tal.calls == {"gather_rows": 1, "gather_sum_rows": 1}
+        torch.autograd.backward([xe, y], [torch.empty_like(xe), torch.empty_like(y)])
+    assert (xe.shape, xe.dtype, y.shape, y.dtype) == (want_xe.shape, want_xe.dtype, want_y.shape, want_y.dtype)
+    assert xe.is_meta and y.is_meta and a.grad.shape == xt.shape and b.grad.shape == ye.shape
+    assert tal.calls == {"gather_rows": 2, "gather_sum_rows": 2}
+    C, row = table.shape[1], GATHER_D * 2
+    rows_bytes = (N * row + E * C * 8 + E * C * row) + (N * row + E * C * 8 + E * C * row)  # xt → xe, dy → d_ye
+    sum_bytes = 2 * ((E * C + N) * row + N * k * 8)  # ye → y, d_xe → d_xt
+    assert (tal.bytes["gather_rows"], tal.bytes["gather_sum_rows"]) == (rows_bytes, sum_bytes)
+    assert tal.flops == {"gather_rows": 0, "gather_sum_rows": 2 * N * (k - 1) * GATHER_D}

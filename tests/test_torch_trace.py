@@ -108,3 +108,26 @@ def test_slot_counters_recount_dispatch(skew):
     assert (c["moe.slots"], c["moe.slots_live"], c["moe.assigned"], c["moe.dropped"]) == (E * C, live, N * k, dropped)
     counts = torch.bincount(top_i.reshape(-1), minlength=E)
     assert bool((counts > C).any()) == (skew > 0)
+
+
+@pytest.mark.parametrize("skew", [0.0, 0.9])
+def test_row_counters_recount_the_gathers(skew):
+    """``moe.rows_gathered`` and ``moe.rows_zeroed`` over a dispatch, the
+    gathers of ``ops.MoEDispatch`` and ``MoECombine`` and their backwards:
+    each direction copies the live slots once and zeroes the dead slots (the
+    dispatch's gather and the combine's backward) and the tokens that lost
+    every expert (the combine's sum and the dispatch's backward)."""
+    N, k, E, d = 96, 2, 6, 8
+    g = torch.Generator().manual_seed(3)
+    scores = torch.rand(N, E, generator=g)
+    scores[:, 0] += skew * 10 * (torch.rand(N, generator=g) < skew)
+    top_p, top_i = torch.topk(torch.softmax(scores, -1), k, dim=-1)
+    C = capacity(N, k, E, 1.0)
+    xt = torch.randn(N, d, generator=g, requires_grad=True)
+    with profile(activities=[ProfilerActivity.CPU]):
+        table, _, slots = dispatch(top_i, top_p / top_p.sum(-1, keepdim=True), E, C)
+        xe = ops.MoEDispatch.apply(xt, table, slots)
+        ops.MoECombine.apply(xe * 2, slots, table).sum().backward()
+    c = trace.counters()
+    live, unplaced = int((table < N).sum()), int((slots == E * C).all(1).sum())
+    assert (c["moe.rows_gathered"], c["moe.rows_zeroed"]) == (4 * live, 2 * (E * C - live + unplaced))
