@@ -10,6 +10,8 @@ name that ``BENCHMARK.json`` gives it:
 - ``workloads/<cell>.json``: the cell's configuration and traffic (as
   ``BENCHMARK.json`` has them) and the limits of its correctness check;
 - ``modes/<mode>.py``: the run of a mode;
+- ``families/<family>.py``: what a model family's training cells differ in
+  (the configuration's ``model.family``, ``portbench/families``);
 - ``metrics/<metric>.py``: a per-layer metric's reader.
 """
 from __future__ import annotations

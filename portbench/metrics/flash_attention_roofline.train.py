@@ -12,10 +12,11 @@ from portbench.timeline import is_flash
 
 
 def read(run):
-    if getattr(run, "mode", None) != "train" or not run.flash_calls:
+    calls = getattr(run, "calls", {}).get("flash_attention") if getattr(run, "mode", None) == "train" else None
+    if not calls:
         return None
     kernels = [e for e in run.timeline.device if is_flash(e)]
-    if len(kernels) != len(run.flash_calls):
+    if len(kernels) != len(calls):
         return None
-    return 100.0 * sum(flash_bound_s(*call) for call in run.flash_calls) * 1e6 / sum(
+    return 100.0 * sum(flash_bound_s(*call) for call in calls) * 1e6 / sum(
         e.time_range.elapsed_us() for e in kernels)

@@ -16,11 +16,16 @@ more and waits for all it sent. ``train_tokens_per_s`` is all the tokens of
 the steps sent in the window over the wall time from its start to that
 last wait's end.
 
+What differs between model families (the fields the program's config is
+held to, the weights, the reference's loss, the model FLOPs, the calls
+wrapped in ranges) is the family's (``portbench/families``, by the model
+block's ``family``); the run, its window and its check are one for all.
+
 With ``trace`` the benchmark's ranges (:mod:`portbench.timeline`) wrap the
-optimizer update, the MoE FFN, the attention backward and the flash call
-for the whole run, and ``torch.profiler`` records ``profile_steps`` more
-steps after the window; the per-layer readers (``portbench/metrics``) read
-them.
+optimizer update and the family's calls (the MoE FFN, the attention
+backward and the flash call; the SSD's backward and its forward) for the
+whole run, and ``torch.profiler`` records ``profile_steps`` more steps after
+the window; the per-layer readers (``portbench/metrics``) read them.
 
 After the window the peak memory is read, the program's state is freed and
 the reference runs the checked steps again from the same weights and
@@ -35,16 +40,12 @@ import time
 
 import torch
 
-from portbench import check, flops, generator, timeline, weights
+from portbench import check, families, generator, timeline, weights
 from portbench.reference import train as reference
 
-CHECKED_FIELDS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab", "vocab_pad_multiple",
-                  "n_experts", "top_k", "n_shared_experts", "capacity_factor", "router_aux_coef",
-                  "tie_embeddings", "attention_bias", "qk_norm", "rope_theta", "rms_eps", "activation", "dtype")
 CHECKED_STEPS = 3  # the set-up's first steps, which the reference follows
 ATTRIBUTION_STEPS = 1  # steps profiled with the host's ops: ~140k host events a step for granite-moe
 AHEAD_S = 6.0  # seconds of steps queued ahead of the one waited for: a host stall of up to that costs no card time
-FIXED = {"family": "moe", "norm_type": "rmsnorm", "parallel_block": False, "use_rope": True, "pos_emb": "none"}
 
 
 def program_config(m: dict):
@@ -54,12 +55,19 @@ def program_config(m: dict):
     return dataclasses.replace(get_config(m["arch"]), n_layers=m["n_layers"])
 
 
+def model_block(cfg, family) -> dict:
+    """The port's config ``cfg`` as the fields of ``family``'s model block,
+    with the attributes the family fixes."""
+    return {f: getattr(cfg, family.ATTRS.get(f, f)) for f in family.FIELDS} | {f: getattr(cfg, f) for f in family.FIXED}
+
+
 def verify(cfg, m: dict) -> None:
     """The program's config must be the configuration file's model, field
-    by field: the benchmark measures what its file says."""
-    got = {f: getattr(cfg, f) for f in CHECKED_FIELDS} | {"head_dim": cfg.resolved_head_dim}
-    got |= {f: getattr(cfg, f) for f in FIXED}
-    want = {f: m[f] for f in CHECKED_FIELDS} | {"head_dim": m["head_dim"]} | FIXED
+    by field, and of the model block's family: the benchmark measures what
+    its file says."""
+    family = families.of(m)
+    got = model_block(cfg, family)
+    want = {f: m[f] for f in family.FIELDS} | family.FIXED
     wrong = {f: (got[f], want[f]) for f in want if got[f] != want[f]}
     if wrong:
         raise ValueError(f"the program's {m['arch']} is not the configuration's: {wrong} (program, file)")
@@ -123,21 +131,23 @@ class TraceRun:
     ``busy_s`` over ``busy_steps`` steps profiled on the device alone (the
     host's ops unrecorded, so the steps keep nearly their pace), and
     ``timeline`` over ``steps`` steps with the host's ops (for the ranges;
-    the host runs slower under it), with the flash calls' shapes recorded in
-    those; and the window's step clock and a step's model FLOPs."""
+    the host runs slower under it), with the shapes of the calls that the
+    family records (``calls``: range → [shape, …]: the flash calls, the SSD
+    calls) in those; the benchmark's ``ranges``; and the window's step clock
+    and a step's model FLOPs."""
 
-    def __init__(self, busy_s, busy_steps, tl, steps, window, flash_calls, flops_per_step):
+    def __init__(self, busy_s, busy_steps, tl, steps, window, calls, ranges, flops_per_step):
         self.mode = "train"
         self.busy_s, self.busy_steps, self.timeline, self.steps = busy_s, busy_steps, tl, steps
-        self.window, self.flash_calls, self.flops_per_step = window, flash_calls, flops_per_step
+        self.window, self.calls, self.ranges, self.flops_per_step = window, calls, ranges, flops_per_step
 
 
-def profiled(step, state, batches, first: int, traffic: dict, dev, window: dict, flash_calls: list,
+def profiled(step, state, batches, first: int, traffic: dict, dev, window: dict, calls: dict,
              recording: list, flops_per_step: float, log) -> dict:
     """The two profiles after the window: ``profile_steps`` steps with the
     device's activity alone (busy time, window length, the busiest kernels),
     then ``ATTRIBUTION_STEPS`` with the host's ops too (the ranges, the idle
-    gaps by host op, the flash calls' shapes)."""
+    gaps by host op, the recorded calls' shapes)."""
     from torch.profiler import ProfilerActivity, profile
 
     device = [ProfilerActivity.CUDA] if dev.type == "cuda" else []
@@ -160,15 +170,15 @@ def profiled(step, state, batches, first: int, traffic: dict, dev, window: dict,
     recording[0] = True
     tl, wall_b, read_b = steps(kb, [ProfilerActivity.CPU] + device, first + k)
     recording[0] = False
-    ranges = {name: timeline.device_us(tl.in_range(name)) / 1e3
-              for name in ("opt_update", "moe_ffn", "attention_backward")}
-    flash = [e for e in tl.device if timeline.is_flash(e)]
+    names = tuple(calls)
+    ranges = {name: (round(timeline.device_us(tl.in_range(name)) / 1e3, 3),
+                     round(timeline.device_us(tl.backward_of(name)) / 1e3, 3)) for name in names}
     log(f"[trace] device alone: {k} steps in {wall:.3f} s, busy {busy:.3f} s, {len(busy_tl.device)} device "
         f"events, read in {read_a:.1f} s; with the host: {kb} steps in {wall_b:.3f} s, "
         f"{len(tl.device)} device events, {len(tl.host)} host events, read in {read_b:.1f} s; device ms by range "
-        f"{ranges}, MoE backward {timeline.device_us(tl.backward_of('moe_ffn')) / 1e3:.3f} ms; "
-        f"{len(flash_calls)} flash calls, {len(flash)} flash kernels")
-    return {"run": TraceRun(busy, k, tl, kb, window, flash_calls, flops_per_step), "busy_s": busy,
+        f"(inside, its backward nodes) {ranges}; calls recorded {({n: len(c) for n, c in calls.items() if c})}; "
+        f"flash kernels {sum(map(timeline.is_flash, tl.device))}")
+    return {"run": TraceRun(busy, k, tl, kb, window, calls, names, flops_per_step), "busy_s": busy,
             "window_s": wall,
             "breakdown": {"device_ops": busy_tl.top_kernels(), "idle_gaps": tl.idle_gaps()}}
 
@@ -179,9 +189,8 @@ def run(spec: dict, seed: int, seconds: float, trace_on: bool, device: str, star
     ``traffic`` and ``cell`` files; ``started``: the process's start on
     ``time.time()``'s clock. ``cfg`` replaces the port's registered config
     (the tests' small models); it is held to the configuration all the same."""
-    from repro_torch.kernels import ops
     from repro_torch.launch.train import train_allocator
-    from repro_torch.models import build_model, transformer
+    from repro_torch.models import build_model
     from repro_torch.training import train_step as ts
     from repro_torch.training.optimizer import OptimizerConfig
 
@@ -194,28 +203,26 @@ def run(spec: dict, seed: int, seconds: float, trace_on: bool, device: str, star
     m, traffic, cell = spec["config"]["model"], spec["traffic"], spec["cell"]
     cfg = cfg if cfg is not None else program_config(m)
     verify(cfg, m)
+    family = families.of(m)
     dev = torch.device(device)
     opt = traffic["optimizer"]
     opt_cfg = OptimizerConfig(**opt)
     batches = generator.TokenBatches(traffic, m["vocab"], seed)
     checked = CHECKED_STEPS
-    flops_per_step = flops.train_flops_per_token(m, traffic["seq"]) * batches.tokens_per_batch
+    flops_per_step = family.flops_per_token(m, traffic["seq"]) * batches.tokens_per_batch
 
-    flash_calls, recording = [], [False]
+    targets = {"opt_update": (ts, "opt_update")} | family.targets() if trace_on else {}
+    calls, recording = {name: [] for name in targets}, [False]
 
-    def on_flash(q, k, v, *, causal=True, window=None):
-        if recording[0]:
-            if window is not None:
-                raise ValueError("the flash bound counts full causal or non-causal calls only")
-            B, T, H, hd = q.shape
-            flash_calls.append((B, T, k.shape[1], H, k.shape[2], hd, bool(causal), q.element_size()))
+    def recorder(name, shape):
+        def on_call(*args, **kwargs):
+            if recording[0]:
+                calls[name].append(shape(*args, **kwargs))
 
-    targets = {
-        "opt_update": (ts, "opt_update"),
-        "moe_ffn": (transformer, "moe_ffn"),
-        "attention_backward": (ops, "attention_backward"),
-        "flash_attention": (ops, "flash_attention", on_flash),
-    } if trace_on else {}
+        return on_call
+
+    targets = {name: (owner, attr, *(recorder(name, s) for s in shape))
+               for name, (owner, attr, *shape) in targets.items()}
 
     out: dict = {"attempted": 0, "failed": 0, "breakdown": None, "run": None}
     with train_allocator(dev), timeline.patched(targets):
@@ -279,7 +286,7 @@ def run(spec: dict, seed: int, seconds: float, trace_on: bool, device: str, star
             f"{1e3 * statistics.median(sent):.1f}, max {1e3 * max(sent):.1f}; card ms between step ends {ends}")
 
         if trace_on:
-            out.update(profiled(step, state, batches, checked + n, traffic, dev, window, flash_calls, recording,
+            out.update(profiled(step, state, batches, checked + n, traffic, dev, window, calls, recording,
                                 flops_per_step, log))
         out["memory_peak_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
         del state, step, model, params, metrics
@@ -288,7 +295,8 @@ def run(spec: dict, seed: int, seconds: float, trace_on: bool, device: str, star
             torch.cuda.empty_cache()
 
         # the reference's state (fp32 parameters, gradients and both moments:
-        # 64.8 GB for qwen2-moe at 6 layers) grows in the same segments
+        # 64.8 GB for qwen2-moe at 6 layers, 21.5 GB for mamba2-1.3b) grows in
+        # the same segments
         t = time.perf_counter()
         tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False

@@ -13,8 +13,6 @@ import math
 
 import torch
 
-from . import model
-
 
 WHOLE = ("embed", "out_embed", "ln_f")  # leaves that are not stacked by layer
 
@@ -95,7 +93,9 @@ def follow(m: dict, traffic: dict, initial, batches: list[dict], device, precisi
     """The reference's first ``len(batches)`` steps.
 
     ``initial(i)`` draws leaf i of ``portbench.weights.leaf_specs`` (the
-    benchmark's weights, as the program was given them); ``batches`` are the
+    benchmark's weights, as the program was given them); the loss is the
+    reference of the model block's family (``portbench/families``:
+    :mod:`.model`, :mod:`.mamba2`); ``batches`` are the
     steps' tokens and labels (numpy, as the generator made them). Returns
     ``loss`` and ``grad_norm`` (before clipping) per step, ``first_grad``:
     each leaf's norm of the clipped gradient of step 1, and ``change``: each
@@ -104,8 +104,10 @@ def follow(m: dict, traffic: dict, initial, batches: list[dict], device, precisi
     gradient), ``first_dir``: each leaf's :func:`_direction_gap` from it; with
     ``keep_first``, ``first_unit``: this side's own, for another reference's
     ``against``."""
+    from portbench import families
     from portbench.weights import leaf_specs
 
+    model = families.of(m).reference
     opt, A = traffic["optimizer"], traffic["microbatches"]
     specs = leaf_specs(m)
     p, leaves = {}, {}

@@ -4,15 +4,16 @@ from __future__ import annotations
 
 import dataclasses
 
-from portbench import harness
-from portbench.modes.train import CHECKED_FIELDS
+from portbench import families, harness
+from portbench.modes.train import model_block
 
 CONFIGS = sorted(p.stem for p in (harness.HERE / "configs").glob("*.json"))  # every configuration file
 
 
 def small_cell(workload: str, dtype: str = "bfloat16", seq: int = 16, **traffic):
     """(spec, port config) of ``workload`` at the port's reduced size (2
-    layers, d 64, 4 experts top-2, vocab 256) in ``dtype``, its traffic at
+    layers, d 64, vocab 256; 4 experts top-2; SSD state 16, heads of 16,
+    chunk 32) in ``dtype``, its traffic at
     ``seq`` tokens a row and ``traffic``'s other changes."""
     return _small(harness.cell_spec(harness.benchmark(), workload), dtype, seq, traffic)
 
@@ -30,7 +31,6 @@ def _small(spec: dict, dtype: str, seq: int, traffic: dict):
 
     m = spec["config"]["model"]
     cfg = dataclasses.replace(get_config(m["arch"]).reduced(), dtype=dtype)
-    spec["config"] = {**spec["config"], "model": {"arch": m["arch"], "head_dim": cfg.resolved_head_dim,
-                                                  **{f: getattr(cfg, f) for f in CHECKED_FIELDS}}}
+    spec["config"] = {**spec["config"], "model": {"arch": m["arch"], **model_block(cfg, families.of(m))}}
     spec["traffic"] = {**spec["traffic"], "seq": seq, **traffic}
     return spec, cfg

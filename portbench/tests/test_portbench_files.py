@@ -7,7 +7,7 @@ import re
 
 import pytest
 
-from portbench import check, harness
+from portbench import check, families, harness
 
 BENCH = harness.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -110,13 +110,34 @@ def test_every_workload_file_is_a_cell():
 HF = {  # the published keys that carry each model-block size, by model_type
     "granitemoe": {"d_model": "hidden_size", "d_ff": "intermediate_size", "n_experts": "num_local_experts"},
     "qwen2_moe": {"d_model": "hidden_size", "d_ff": "moe_intermediate_size", "n_experts": "num_experts"},
+    # mamba_ssm's config.json, and the Mamba-2 block's defaults (the file's "block")
+    "mamba2": {"d_model": "d_model", "n_layers": "n_layer", "vocab": "vocab_size", "tie_embeddings": "tie_embeddings",
+               "ssm_state": "block.d_state", "conv_kernel": "block.d_conv", "ssm_expand": "block.expand",
+               "ssm_head_dim": "block.headdim", "ssm_groups": "block.ngroups", "ssm_chunk": "block.chunk_size"},
 }
+
+
+def published(data: dict, key: str):
+    for part in key.split("."):
+        data = data[part]
+    return data
 
 
 @pytest.mark.parametrize("config", ALL_CONFIGS)
 def test_model_block_is_the_published_config(config):
     data = harness.load("configs", config)
     m, keys = data["model"], HF[data["model_type"]]
+    if m["family"] == "ssm":
+        # each size is the published one but the vocabulary: the port's 50280
+        # is the published 50277 padded to a multiple of 8 (a declared departure)
+        for field, key in keys.items():
+            want = published(data, key)
+            if field == "vocab":
+                want = -(-want // 8) * 8
+                assert any(d.startswith("vocab:") for d in data["departures"])
+            assert m[field] == want, field
+        assert (data["ssm_cfg"]["layer"], data["d_intermediate"], data["attn_layer_idx"]) == ("Mamba2", 0, [])
+        return
     assert m["d_model"] == data[keys["d_model"]] and m["d_ff"] == data[keys["d_ff"]]
     assert m["n_experts"] == data[keys["n_experts"]] and m["top_k"] == data["num_experts_per_tok"]
     assert (m["n_layers"], m["n_heads"], m["n_kv_heads"], m["vocab"]) == (
@@ -133,6 +154,16 @@ def test_program_config_is_the_configuration(config):
     from portbench.modes import train
 
     m = harness.load("configs", config)["model"]
-    train.verify(train.program_config(m), m)
+    cfg = train.program_config(m)
+    train.verify(cfg, m)
+    for field in families.of(m).FIELDS:  # each field its family checks, one at a time
+        changed = not m[field] if isinstance(m[field], bool) else (
+            m[field] + 1 if isinstance(m[field], (int, float)) else m[field] + "x")
+        with pytest.raises(ValueError, match=field):
+            train.verify(cfg, {**m, field: changed})
+
+
+@pytest.mark.parametrize("family", ["no_such_family", "../moe", "moe.x", ""])
+def test_unknown_family_is_refused(family):
     with pytest.raises(ValueError):
-        train.verify(train.program_config(m), {**m, "d_ff": m["d_ff"] + 1})
+        families.of({"family": family})

@@ -27,7 +27,7 @@ print(json.dumps(harness.forbidden_modules()))
 REFERENCE = """
 import json, sys
 sys.path[:0] = [{root!r}]
-import portbench.reference.model, portbench.reference.train
+import portbench.reference.model, portbench.reference.mamba2, portbench.reference.train
 print(json.dumps(sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "repro", "repro_torch"))))
 """
 

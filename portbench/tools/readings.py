@@ -7,8 +7,9 @@ at the cell's own size, in one process:
 For each of ``--seeds`` seeds from ``--first-seed``, a run of the cell as
 ``run.py`` makes it (set-up, a one-second window, the reference) and its
 numbers (``portbench/check.py``): the lower readings. For the first
-``--control`` seeds, the control (``portbench/reference/model.py``,
-``precision="fp8"``: bf16 activations and fp8 products) in the program's
+``--control`` seeds, the control (the family's reference,
+``portbench/reference/model.py`` or ``mamba2.py``, with ``precision="fp8"``:
+bf16 activations and fp8 products) in the program's
 place, against an fp32 reference run of its own (:func:`control`): the
 upper readings (``--seeds 0``: the
 control alone). With ``--fault half_batch``, the program with half of each

@@ -7,8 +7,11 @@
 One run of the cell as ``run.py --trace 1`` makes it (set-up, the window,
 the two profiles, the reference), then: its result line; the device ms a
 step of each span of a layer's parts (its forward, recompute and tied
-backward nodes, as ``Spans.layer_ms``), of ``forward``, ``backward``, the
-remat recompute, ``clip``, ``optimizer`` and the whole step; each span's
+backward nodes, as ``Spans.layer_ms``: the MoE's parts, ``ssd.backward``),
+of ``forward``, ``backward``, the remat recompute, ``clip``, ``optimizer``
+and the whole step; of each of the benchmark's ranges
+(``portbench.<range>``: the optimizer update and the family's, such as
+``ssd_backward``); each span's
 busiest kernels; the program's counters; and the device's idle gaps by the
 innermost span open at each. The last line of standard output is the same
 as one JSON object.
@@ -24,7 +27,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-from portbench import harness, spans  # noqa: E402
+from portbench import harness, spans, timeline  # noqa: E402
 
 STARTED = harness.process_start()
 PHASES = ("train_step", "microbatch", "forward", "backward", "clip", "optimizer", "layer")  # in phase_ms
@@ -57,6 +60,8 @@ def report(run) -> dict:
                      "recompute": s.device_ms(s.recompute()),
                      "clip": s.device_ms(s.inside("clip")), "optimizer": s.device_ms(s.inside("optimizer")),
                      "step": s.device_ms(s.during(spans.STEP))},
+        "range_ms": {name: timeline.device_us(run.timeline.in_range(name)) / 1e3 / s.steps
+                     for name in getattr(run, "ranges", ())},
         "span_kernels": {name: top(s, s.inside(name) + s.backward_of(name)) for name in sorted(s.spans)
                          if name not in PHASES},
         "unlaunched": sum(v is None for v in s.launcher.values()),
@@ -81,7 +86,7 @@ def main(argv=None) -> int:
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
               "memory_peak_bytes": out["memory_peak_bytes"]}
     result = {"line": harness.result_line(out, bench, args.workload, True, device), **report(out["run"])}
-    for key in ("span_ms", "phase_ms", "counters"):
+    for key in ("span_ms", "phase_ms", "range_ms", "counters"):
         log(f"{key}: " + ", ".join(f"{k} {v:.3f}" for k, v in result[key].items()))
     log(f"idle gaps by span: {result['idle_gaps']}; device events with no launching call: {result['unlaunched']}")
     text = json.dumps(result)
